@@ -1,0 +1,43 @@
+"""Carry parameters and eigen-data across from the JAX package as numpy.
+
+The port never imports `diffsound_tpu`; callers (the parity tests, or a
+user moving a run between the packages) hand over plain numpy arrays, e.g.
+`{k: np.asarray(v) for k, v in jax_params.items()}`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.material_model import PARAM_DTYPE
+from .models.sound_obj import EigenState, ModalCache
+
+
+def params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
+    """JAX `MaterialBins` params (dict of numpy logits) -> the port's dict
+    of leaf tensors on `device` (float32 like the trainers' params; the
+    parity tests pass float64 to compare the chain above f32 roundoff)."""
+    return {
+        k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device).clone()
+        for k, v in params.items()
+    }
+
+
+def eigen_state_from_numpy(eigenvalues, eigenvectors, dtype, device="cpu",
+                           iterations: int = 0, residual=None) -> EigenState:
+    vals = torch.as_tensor(np.asarray(eigenvalues), dtype=dtype, device=device)
+    res = (
+        torch.zeros_like(vals) if residual is None
+        else torch.as_tensor(np.asarray(residual), dtype=dtype, device=device)
+    )
+    return EigenState(
+        vals, torch.as_tensor(np.asarray(eigenvectors), dtype=dtype, device=device),
+        int(iterations), res,
+    )
+
+
+def modal_cache_from_numpy(eigenvalues, q_mu, q_lam, q_m, dtype,
+                           device="cpu") -> ModalCache:
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return ModalCache(as_t(eigenvalues), as_t(q_mu), as_t(q_lam), as_t(q_m))

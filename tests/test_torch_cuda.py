@@ -1,0 +1,98 @@
+"""The port on the card: the synthesis kernel against its plain version, its
+autograd function and dispatch, and a short MaterialSyncTask run on CUDA.
+
+These tests import neither JAX nor the JAX package, so they run on a
+machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
+there they run without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Without a card every test skips."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from diffsound_torch.audio import synth_kernel
+from diffsound_torch.audio.oscillator import synth_constant_modes
+from diffsound_torch.audio.synth_kernel import synth_constant_modes_plain
+
+torch.set_num_threads(2)
+
+SR = 32000.0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the synthesis kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+def _modes(A, M, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.as_tensor(x.astype(np.float32), device=device)
+        for x in (rng.uniform(100, 8000, (A, M)), rng.uniform(1, 100, (A, M)),
+                  rng.uniform(0.1, 1, (A, M)))
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,M,T", [(1, 16, 8000), (8, 256, 8000), (3, 40, 1000), (2, 1500, 300)])
+def test_kernel_matches_plain(cuda_device, A, M, T):
+    f, d, a = _modes(A, M, cuda_device, seed=A + M)
+    before = synth_kernel.LAUNCHES
+    out = synth_kernel.synth_kernel(f, d, a, T, SR)
+    torch.cuda.synchronize()
+    assert synth_kernel.LAUNCHES == before + 1
+    assert out.shape == (A, T) and out.dtype == torch.float32
+    ref = synth_constant_modes_plain(f, d, a, T, SR)
+    # f32 sums of M terms, each with an f32-rounded phase and envelope
+    bound = 1e-5 * a.abs().sum(dim=1, keepdim=True)
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_synthfn_grads_and_dispatch(cuda_device):
+    f, d, a = (x.requires_grad_(True) for x in _modes(2, 16, cuda_device, seed=5))
+    before = synth_kernel.LAUNCHES
+    out = synth_constant_modes(f, d, a, 1000, SR)
+    assert synth_kernel.LAUNCHES == before + 1
+    g = torch.autograd.grad(out.square().sum(), (f, d, a))
+    ref = synth_constant_modes_plain(f, d, a, 1000, SR)
+    g_ref = torch.autograd.grad(ref.square().sum(), (f, d, a))
+    for x, y in zip(g, g_ref):
+        torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-3 * float(y.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_cannot_take(cuda_device):
+    f, d, a = _modes(2, 16, cuda_device)
+    with pytest.raises(TypeError):
+        synth_constant_modes(f.double(), d.double(), a.double(), 1000, SR)
+    with pytest.raises(TypeError):
+        synth_kernel.synth_kernel(f.double(), d, a, 1000, SR)
+    with pytest.raises(ValueError):
+        synth_kernel.synth_kernel(f.t().contiguous().t(), d, a, 1000, SR)
+    with pytest.raises(ValueError):
+        synth_kernel.synth_kernel(f, d.cpu(), a, 1000, SR)
+
+
+@pytest.mark.cuda
+def test_material_sync_short_run_on_cuda(cuda_device):
+    from diffsound_torch.experiments.material_sync import MaterialSyncTask
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+
+    task = MaterialSyncTask(mesh=cube_tet_mesh(3, 0.5), mode_num=8, frame_num=2000)
+    assert task.device.type == "cuda" and task.dtype == torch.float32
+    gt_audio, gt_freqs = task.make_gt((2700, 7.2e10, 0.19, 6, 1e-7))
+    assert gt_audio.is_cuda and np.isfinite(gt_freqs).all()
+    before = synth_kernel.LAUNCHES
+    res = task.train((2700, 6.6e10, 0.23, 6, 1e-7), gt_audio, max_epoch=30,
+                     early_loss_epoch=0, late_freq_weight=0.0, verbose=False)
+    assert synth_kernel.LAUNCHES - before >= 30
+    assert np.isfinite(res["losses"]).all() and len(res["refresh_iters"]) == 1
+    assert math.isfinite(res["youngs"]) and math.isfinite(res["poisson"])

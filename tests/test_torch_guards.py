@@ -1,0 +1,92 @@
+"""Guards of the PyTorch port: it never imports JAX, it never runs on the CPU
+unless asked, its CUDA synthesis never falls back to the plain version, and
+its flagship material pairs are the JAX package's draw."""
+
+import ast
+import inspect
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from diffsound_tpu.experiments.material_sync import random_material_pairs
+
+from diffsound_torch.audio import synth_kernel
+from diffsound_torch.audio.oscillator import synth_constant_modes
+from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
+from diffsound_torch.fem.mesh import cube_tet_mesh
+from diffsound_torch.models.sound_obj import DiffSoundObject, build_model
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffsound_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "diffsound_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = [
+        f"{p.relative_to(ROOT)}: {m}"
+        for p in sources for m in _imported_modules(p)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", [build_model, DiffSoundObject.__init__, MaterialSyncTask])
+def test_entry_points_default_to_cuda(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = cube_tet_mesh(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(mesh=mesh, mode_num=2, order=1, task="material")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MaterialSyncTask(mesh=mesh, mode_num=2)
+    # asked for explicitly, the CPU runs (in float64)
+    assert build_model(mesh=mesh, mode_num=2, order=1, device="cpu").dtype == torch.float64
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports itself as CUDA, to reach the dispatch's
+    CUDA branch on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_cuda_synthesis_of_float64_raises_and_never_falls_back():
+    x = torch.ones(1, 4, dtype=torch.float64).as_subclass(_CudaLooking)
+    before = synth_kernel.LAUNCHES
+    with pytest.raises(TypeError, match="float32"):
+        synth_constant_modes(x, x, x, 100, 32000.0)
+    assert synth_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [1, 4, 16])
+def test_flagship_pairs_are_the_jax_draw(n):
+    want = random_material_pairs(jax.random.PRNGKey(0), n)
+    got = flagship_material_pairs(n)
+    assert len(got) == n
+    for (gi, gt), (wi, wt) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(gi), np.asarray(wi))
+        np.testing.assert_array_equal(np.asarray(gt), np.asarray(wt))
