@@ -11,15 +11,18 @@ fails the run by raising:
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of every kernel from the sources in the
    checkout (nvcc, sm_90a).
-2. Kernel phase: the oscillator-synthesis kernel against its plain PyTorch
-   version on the card, forward and gradient, at the flagship shape
-   (1, 16, 8000), the material_real ground-truth bank (8, 256, 8000) and a
-   ragged T (3, 40, 1000), with CUDA-event times of both.
+2. Kernel phase: the oscillator-synthesis kernels, forward and backward,
+   against their plain PyTorch versions on the card (the backward against
+   the plain one in float64), at the flagship shape (1, 16, 8000), the
+   material_real ground-truth bank (8, 256, 8000) and a ragged T
+   (3, 40, 1000), with CUDA-event times of each kernel, of its plain
+   version, and of SynthFn's forward and backward against autograd of the
+   plain version.
 3. Main path at full width: the material_sync L1 trainer
    (`MaterialSyncTask.make_gt` / `.train`) on `cube_tet_mesh(13, 0.3)` at
    order 2 (59,049 DOF), 16 modes, 8000 samples at 32 kHz, flagship pair 0,
-   pretrain on, 150 epochs with an eigensolve refresh every 15.  The kernel
-   launch counts are zeroed just before and read just after; the last
+   pretrain on, 150 epochs with an eigensolve refresh every 15.  The launch
+   counts of both kernels are zeroed just before and read just after; the last
    refresh's eigenvalues are held against a host ARPACK solve, and one
    cached training step in f32 on the card against the port's f64 on the
    CPU at the same params and eigenvectors.  Then a profile of the cached
@@ -44,9 +47,9 @@ import time
 
 SR = 32000.0
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores.
+# dense TF32 tensor-core operations/s (a multiply-add counts two).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
 # torch.cuda._sleep spins in GPU clock cycles; the H100's boost clock is
 # about 2 GHz.
 GPU_CYCLES_PER_MS = 2e6
@@ -105,26 +108,38 @@ def timed(fn, reps: int, rounds: int = 3):
     return dict(all=[r[0] for r in runs], ms=dev[rounds // 2], host_ms=host[rounds // 2])
 
 
-def launches_per_call(fn) -> int:
-    """Kernel launches of one fn() call, from torch.profiler."""
+def launches_per_call(fn, calls: int = 5) -> int:
+    """Kernels of one fn() call on the device, from torch.profiler (copies
+    and memsets left out), averaged over several calls and rounded: the
+    device's own record, so a kernel launched from a library with its own
+    CUDA runtime counts as well; a short window can lose a record."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return max(1, sum(1 for e in prof.events() if e.name == "cudaLaunchKernel"))
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    return max(1, round(kernels / calls))
 
 
-def synth_bound(A: int, M: int, T: int):
-    """Least time for the synthesis on the card: inputs (three (A, M) f32)
-    read once and the (A, T) f32 output written once, against one exp and
-    one sin per (a, m, t) at the float32 peak."""
-    nbytes = 4 * (3 * A * M + A * T)
-    ops = 2 * A * M * T
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+def synth_bound(A: int, M: int, T: int, backward: bool = False):
+    """Least time for work that any implementation of the synthesis must do:
+    the inputs read once and the outputs written once (forward: three (A, M)
+    tables in, (A, T) out; backward: the tables and the (A, T) cotangent in,
+    three (A, M) gradients out), against the mode sum's multiply-adds at the
+    TF32 tensor peak (one per (a, m, t) forward, three backward)."""
+    if backward:
+        nbytes, macs = 4 * (6 * A * M + A * T), 3 * A * M * T
+    else:
+        nbytes, macs = 4 * (3 * A * M + A * T), A * M * T
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * macs / PEAK_TF32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -141,13 +156,20 @@ def synth_modes(A, M, device, seed):
     return tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (f, d, a))
 
 
+def fmt(xs):
+    return " ".join(f"{x:.5f}" for x in xs)
+
+
 def kernel_phase(device):
-    """The synthesis kernel against its plain version; returns the figures
-    at the flagship shape, the one the main path launches."""
+    """Both synthesis kernels against their plain versions; returns the
+    figures of each kernel at the flagship shape, the one the main path
+    launches."""
     import torch
 
     from diffsound_torch.audio import synth_kernel
-    from diffsound_torch.audio.synth_kernel import SynthFn, synth_constant_modes_plain
+    from diffsound_torch.audio.synth_kernel import (
+        SynthFn, synth_constant_modes_bwd_plain, synth_constant_modes_plain,
+    )
 
     flagship = None
     for A, M, T in ((1, 16, 8000), (8, 256, 8000), (3, 40, 1000)):
@@ -168,40 +190,80 @@ def kernel_phase(device):
                 f"exceeds 1e-5 * sum|amp| = {float(bound.min()):.3e}"
             )
 
-        # Gradient wiring: SynthFn's backward recomputes through the plain
-        # version, so this checks how the kernel is bound into autograd,
-        # not a kernel.
+        # Backward kernel against the plain backward in f64 (gate: 1e-4 of
+        # max|grad| per gradient); the plain backward in f32 is the witness
+        # of what f32 alone costs.  SynthFn's backward of <out, w> must hand
+        # back the wrapper's gradients bit for bit.
         w = torch.randn((A, T), generator=torch.Generator(device).manual_seed(A + M),
                         device=device)
+        with torch.no_grad():
+            g_k = synth_kernel.synth_kernel_bwd(f, d, a, w, T, SR)
+            g_64 = synth_constant_modes_bwd_plain(f.double(), d.double(), a.double(),
+                                                  w.double(), T, SR)
+            g_32 = synth_constant_modes_bwd_plain(f, d, a, w, T, SR)
+        torch.cuda.synchronize()
+        rel = lambda x, y: float((x.double() - y).abs().max() / y.abs().max())
+        bwd_rel = [rel(x, y) for x, y in zip(g_k, g_64)]
+        plain_rel = [rel(x, y) for x, y in zip(g_32, g_64)]
+        bwd_abs = max(float((x.double() - y).abs().max()) for x, y in zip(g_k, g_64))
+        if not (all(bool(torch.isfinite(x).all()) for x in g_k) and max(bwd_rel) <= 1e-4):
+            raise RuntimeError(f"synth backward kernel ({A},{M},{T}): relative errors "
+                               f"{bwd_rel} (f, d, amp) against the f64 plain version")
         ins = [x.clone().requires_grad_(True) for x in (f, d, a)]
-        g_k = torch.autograd.grad((SynthFn.apply(*ins, T, SR) * w).sum(), ins)
-        ins = [x.clone().requires_grad_(True) for x in (f, d, a)]
-        g_p = torch.autograd.grad((synth_constant_modes_plain(*ins, T, SR) * w).sum(), ins)
-        grad_err = max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
-                       for x, y in zip(g_k, g_p))
-        if not grad_err <= 1e-5:
-            raise RuntimeError(f"SynthFn ({A},{M},{T}): relative gradient error {grad_err:.3e}")
+        g_fn = torch.autograd.grad((SynthFn.apply(*ins, T, SR) * w).sum(), ins)
+        if not all(torch.equal(x, y) for x, y in zip(g_fn, g_k)):
+            raise RuntimeError(f"SynthFn ({A},{M},{T}): backward differs from the kernel's")
+
+        def synthfn_step():
+            return torch.autograd.grad(SynthFn.apply(*ins, T, SR), ins, w)
+
+        def plain_step():
+            return torch.autograd.grad(synth_constant_modes_plain(*ins, T, SR), ins, w)
 
         with torch.no_grad():
             # at most 400 launches a round, well inside the launch queue
             n_plain = launches_per_call(lambda: synth_constant_modes_plain(f, d, a, T, SR))
-            kern = timed(lambda: synth_kernel.synth_kernel(f, d, a, T, SR), 200)
-            plain = timed(lambda: synth_constant_modes_plain(f, d, a, T, SR),
-                          max(1, 400 // n_plain))
-        bound_ms, bound_by = synth_bound(A, M, T)
+            n_plain_bwd = launches_per_call(
+                lambda: synth_constant_modes_bwd_plain(f, d, a, w, T, SR))
+            fwd = timed(lambda: synth_kernel.synth_kernel(f, d, a, T, SR), 200)
+            fwd_plain = timed(lambda: synth_constant_modes_plain(f, d, a, T, SR),
+                              max(1, 400 // n_plain))
+            bwd = timed(lambda: synth_kernel.synth_kernel_bwd(f, d, a, w, T, SR), 200)
+            bwd_plain = timed(lambda: synth_constant_modes_bwd_plain(f, d, a, w, T, SR),
+                              max(1, 400 // n_plain_bwd))
+        n_fn, n_auto = launches_per_call(synthfn_step), launches_per_call(plain_step)
+        fn = timed(synthfn_step, max(1, 400 // n_fn))
+        auto = timed(plain_step, max(1, 400 // n_auto))
+        fwd_bound, fwd_by = synth_bound(A, M, T)
+        bwd_bound, bwd_by = synth_bound(A, M, T, backward=True)
         log(f"kernel synth ({A},{M},{T}): max|kernel-plain| {fwd_err:.3e} "
-            f"(bound {float(bound.min()):.3e}); SynthFn gradient wiring rel err {grad_err:.3e}")
-        log(f"kernel synth ({A},{M},{T}): device ms per call, kernel "
-            f"{' '.join(f'{x:.5f}' for x in kern['all'])}, plain "
-            f"{' '.join(f'{x:.5f}' for x in plain['all'])} (three rounds; the plain "
-            f"version launches {n_plain} kernels a call); host ms per "
-            f"call, kernel wrapper {kern['host_ms']:.5f}, plain {plain['host_ms']:.5f}; "
-            f"bound {bound_ms:.6f} ms ({bound_by})")
+            f"(bound {float(bound.min()):.3e})")
+        log(f"kernel synth ({A},{M},{T}): device ms per call, kernel {fmt(fwd['all'])}, "
+            f"plain {fmt(fwd_plain['all'])} (three rounds; the plain version launches "
+            f"{n_plain} kernels a call); host ms per call, kernel wrapper "
+            f"{fwd['host_ms']:.5f}, plain {fwd_plain['host_ms']:.5f}; "
+            f"bound {fwd_bound:.7f} ms ({fwd_by})")
+        log(f"kernel synth_bwd ({A},{M},{T}): relative error (f, d, amp) against f64 "
+            f"{' '.join(f'{x:.3e}' for x in bwd_rel)}, max abs {bwd_abs:.3e}; plain f32 "
+            f"{' '.join(f'{x:.3e}' for x in plain_rel)}")
+        log(f"kernel synth_bwd ({A},{M},{T}): device ms per call, kernel {fmt(bwd['all'])}, "
+            f"plain {fmt(bwd_plain['all'])} (the plain backward launches {n_plain_bwd} "
+            f"kernels a call); host ms per call, kernel wrapper {bwd['host_ms']:.5f}, "
+            f"plain {bwd_plain['host_ms']:.5f}; bound {bwd_bound:.7f} ms ({bwd_by})")
+        log(f"SynthFn forward+backward ({A},{M},{T}): device ms per call {fmt(fn['all'])}, "
+            f"host {fn['host_ms']:.5f}, {n_fn} launches a call; autograd of the plain "
+            f"version {fmt(auto['all'])}, host {auto['host_ms']:.5f}, {n_auto} launches")
         if flagship is None:
-            flagship = dict(max_abs_err=fwd_err, ms=kern["ms"], plain_ms=plain["ms"],
-                            bound_ms=bound_ms, bound_by=bound_by)
-    log("kernel synth: no single PyTorch call computes this sum of damped "
-        "sinusoids, so there is no library time (library_ms null)")
+            flagship = {
+                "synth_constant_modes": dict(
+                    max_abs_err=fwd_err, ms=fwd["ms"], plain_ms=fwd_plain["ms"],
+                    bound_ms=fwd_bound, bound_by=fwd_by),
+                "synth_constant_modes_bwd": dict(
+                    max_abs_err=bwd_abs, max_rel_err=max(bwd_rel), ms=bwd["ms"],
+                    plain_ms=bwd_plain["ms"], bound_ms=bwd_bound, bound_by=bwd_by),
+            }
+    log("kernel synth, synth_bwd: no single PyTorch call computes this sum of damped "
+        "sinusoids or its gradient, so there is no library time (library_ms null)")
     return flagship
 
 
@@ -223,7 +285,7 @@ def main_path_phase():
                             force_frame_num=150, exp_mode=3)
     epochs = 150
 
-    synth_kernel.LAUNCHES = 0
+    synth_kernel.LAUNCHES = synth_kernel.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
     gt_audio, gt_freqs = task.make_gt(gt_mat)
     torch.cuda.synchronize()
@@ -231,7 +293,8 @@ def main_path_phase():
     res = task.train(init_mat, gt_audio, max_epoch=epochs, early_loss_epoch=0,
                      late_freq_weight=0.0, pretrain=True, verbose=True)
     torch.cuda.synchronize()
-    launches = synth_kernel.LAUNCHES
+    launches = {"synth_constant_modes": synth_kernel.LAUNCHES,
+                "synth_constant_modes_bwd": synth_kernel.LAUNCHES_BWD}
 
     eig = res["eig"]
     dof = eig.eigenvectors.shape[0]
@@ -247,7 +310,8 @@ def main_path_phase():
     log(f"main path: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
         f"E {res['youngs']:.6g} (target {gt_mat[1]:.6g}, init {init_mat[1]:.6g}), "
         f"nu {res['poisson']:.5f} (target {gt_mat[2]:.5f}, init {init_mat[2]:.5f})")
-    log(f"main path: synth kernel launches {launches}")
+    log(f"main path: synth kernel launches {launches['synth_constant_modes']}, "
+        f"synth backward kernel launches {launches['synth_constant_modes_bwd']}")
 
     if dof != 59049:
         raise RuntimeError(f"expected 59,049 DOF, got {dof}")
@@ -257,8 +321,10 @@ def main_path_phase():
         raise RuntimeError(
             f"loss did not fall: first 15 mean {losses[:15].mean():.5f}, "
             f"last 15 mean {losses[-15:].mean():.5f}")
-    if launches < epochs:
-        raise RuntimeError(f"the main path launched the synth kernel {launches} times")
+    for name, n in launches.items():
+        if n < epochs:
+            raise RuntimeError(f"the main path launched {name} {n} times, fewer than "
+                               f"its {epochs} steps")
 
     # the last warm refresh's eigenvalues against host ARPACK at its material
     mu, lam = res["refresh_lame"][-1]
@@ -276,7 +342,7 @@ def main_path_phase():
 
     step_precision_check(check, mesh, init_mat, eig, res["params"], gt_audio)
     step_profile(check, check.modal_cache(eig), res["params"], gt_audio, init_mat)
-    return {"synth_constant_modes": launches}
+    return launches
 
 
 def step_inputs(init_mat, gt_audio, dtype):
@@ -412,9 +478,11 @@ def step_profile(model, cache, params, gt_audio, init_mat, steps: int = 30):
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device_work) / 5
     launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel") / 5
+    kernels = sum(1 for e in device_work if not e.name.startswith(("Memcpy", "Memset"))) / 5
     log(f"step profile: host {host_ms:.3f} ms per step, device work {device_ms:.3f} ms "
         f"(idle share {1 - device_ms / host_ms:.3f}), {launches:.0f} cudaLaunchKernel "
-        f"calls and {len(device_work) / 5:.0f} device activities per step")
+        f"calls, {kernels:.0f} kernels and {len(device_work) / 5:.0f} device activities "
+        f"per step")
     if not 0 < device_ms < host_ms:
         raise RuntimeError(f"step profile: device work {device_ms:.3f} ms per step "
                            f"against {host_ms:.3f} ms of host time")
@@ -440,17 +508,19 @@ def cli_phase():
         cfg_path = os.path.join(tmp, "config.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
-        synth_kernel.LAUNCHES = 0
+        synth_kernel.LAUNCHES = synth_kernel.LAUNCHES_BWD = 0
         material_sync.main(["--config", cfg_path])
-        launches = synth_kernel.LAUNCHES
+        launches, launches_bwd = synth_kernel.LAUNCHES, synth_kernel.LAUNCHES_BWD
         with open(os.path.join(out_dir, "result.txt")) as f:
             fields = dict(line.strip().split(":", 1) for line in f if ":" in line)
     youngs, poisson = float(fields["youngs"]), float(fields["poisson"])
-    log(f"cli: result.txt E {youngs:.6g} nu {poisson:.5f}; synth kernel launches {launches}")
+    log(f"cli: result.txt E {youngs:.6g} nu {poisson:.5f}; synth kernel launches "
+        f"{launches}, backward {launches_bwd}")
     if not (math.isfinite(youngs) and math.isfinite(poisson)):
         raise RuntimeError("result.txt holds non-finite E or nu")
-    if launches < 30:
-        raise RuntimeError(f"the CLI run launched the synth kernel {launches} times")
+    if min(launches, launches_bwd) < 30:
+        raise RuntimeError(f"the CLI run launched the synth kernels {launches} and "
+                           f"{launches_bwd} times")
 
 
 def main() -> int:
@@ -474,7 +544,7 @@ def main() -> int:
         f"(nvcc {synth_kernel.BUILD_SECONDS})")
 
     t_phase = time.perf_counter()
-    flagship = kernel_phase(device)
+    figures = kernel_phase(device)
     log(f"phase kernel: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
     launches = main_path_phase()
@@ -484,18 +554,18 @@ def main() -> int:
     log(f"phase cli: {time.perf_counter() - t_phase:.3f} s")
 
     kernels = [{
-        "name": "synth_constant_modes",
+        "name": name,
         "route": "cuda",
         "source": "diffsound_torch/csrc/synth.cu",
-        "replaces": "diffsound_tpu/audio/pallas_osc.py:33",
-        "launches": launches["synth_constant_modes"],
-        "max_abs_err": flagship["max_abs_err"],
-        "ms": flagship["ms"],
-        "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"],
-        "bound_by": flagship["bound_by"],
+        "replaces": replaces,
+        "launches": launches[name],
+        **figures[name],
         "library_ms": None,
-    }]
+    } for name, replaces in (
+        ("synth_constant_modes", "diffsound_tpu/audio/pallas_osc.py:33"),
+        # the TPU kernel's VJP: synth_fused's backward recomputes through XLA
+        ("synth_constant_modes_bwd", "diffsound_tpu/audio/pallas_osc.py:112"),
+    )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

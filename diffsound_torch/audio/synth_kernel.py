@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernel for the damped oscillator-bank synthesis, its
-wrapper, its autograd function, and its plain PyTorch version.
+"""Hand-written CUDA kernels for the damped oscillator-bank synthesis and its
+backward, their wrappers, the autograd function, and the plain PyTorch
+versions.
 
     out[a, t] = sum_m amp[a, m] * exp(-d[a, m] (t+1)/sr) * sin(2 pi frac(f[a, m] (t+1)/sr))
 
@@ -10,12 +11,18 @@ when the source hash changes) and loaded with ctypes.
 
 * `synth_kernel` launches the kernel for CUDA float32 tensors (and raises on
   anything else on the GPU); for CPU tensors it returns the plain version.
-* `SynthFn` is the autograd function: kernel forward, plain-version
-  recompute backward (as `_synth_fused_bwd` does in the JAX package).
+* `synth_kernel_bwd` launches the backward kernel, (A, T) cotangent ->
+  (grad_f, grad_d, grad_amp), for CUDA tensors; for CPU tensors it returns
+  the plain version.
+* `SynthFn` is the autograd function over the two wrappers: both kernels on
+  CUDA, both plain versions on the CPU.
 * `synth_constant_modes_plain` is the port of
-  `oscillator.py::_synth_constant_modes_xla`: the tests, the backward and
-  the on-card comparison use it; the CUDA main path does not.
-* `LAUNCHES` counts kernel launches (one per call that reached the kernel).
+  `oscillator.py::_synth_constant_modes_xla`, and
+  `synth_constant_modes_bwd_plain` its vector-Jacobian product as direct
+  sums: the tests and the on-card comparison use them; the CUDA main path
+  does not.
+* `LAUNCHES` and `LAUNCHES_BWD` count launches of the forward and the
+  backward kernel (one per call that reached the kernel).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 BUILD_SECONDS = None  # wall time of the nvcc build in this process (None: loaded a cached build)
 
 _lib = None
@@ -89,13 +97,13 @@ def _load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.synth_constant_modes_launch
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
+            for fn, n_ptr in ((lib.synth_constant_modes_launch, 4),
+                              (lib.synth_constant_modes_bwd_launch, 5)):
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                    ctypes.c_void_p,
+                ]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -113,6 +121,49 @@ def synth_constant_modes_plain(freqs, damps, amps, num_samples: int, sr: float):
     return sig.sum(dim=-2)  # (A, T)
 
 
+def synth_constant_modes_bwd_plain(freqs, damps, amps, g, num_samples: int, sr: float):
+    """Plain PyTorch vector-Jacobian product of `synth_constant_modes_plain`:
+    the (A, num_samples) cotangent g -> (grad_f, grad_d, grad_amp), each
+    (A, M), as direct sums over t with the phase in float64.  The phase's
+    time is (t+1)/sr in float64 and the envelope's the float32 one, as in
+    the forward, so in float64 this is autograd of the forward."""
+    dtype, device = amps.dtype, amps.device
+    n1 = torch.arange(num_samples, dtype=torch.float64, device=device) + 1.0
+    t = ((torch.arange(num_samples, dtype=torch.float32, device=device) + 1.0) / sr).to(dtype)
+    phase = 2.0 * math.pi * torch.remainder(freqs.to(torch.float64)[..., None] * (n1 / sr), 1.0)
+    ge = g.to(dtype)[:, None, :] * torch.exp(-damps[..., None] * t)  # (A, M, T)
+    ge_sin = ge * torch.sin(phase).to(dtype)
+    grad_amp = ge_sin.sum(dim=-1)
+    grad_d = -amps * (ge_sin * t).sum(dim=-1)
+    grad_f = (2.0 * math.pi) * amps * (ge * torch.cos(phase).to(dtype) * (n1 / sr).to(dtype)).sum(dim=-1)
+    return grad_f, grad_d, grad_amp
+
+
+def _check_cuda(fn_name, T, **tensors):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
+    device, (A, M) for the mode tables and (A, T) for g, inside the grid;
+    returns (A, M)."""
+    freqs = tensors["freqs"]
+    if freqs.dim() != 2:
+        raise ValueError(f"{fn_name}: freqs has shape {tuple(freqs.shape)}, expected (A, M)")
+    A, M = freqs.shape
+    for name, x in tensors.items():
+        shape = (A, T) if name == "g" else (A, M)
+        if not x.is_cuda:
+            raise ValueError(f"{fn_name}: {name} is on {x.device}, expected CUDA")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{fn_name}: {name} is {x.dtype}, the kernel takes float32")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{fn_name}: {name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{fn_name}: {name} is not contiguous")
+        if x.device != freqs.device:
+            raise ValueError(f"{fn_name}: inputs on different devices")
+    if A > 65535 or T >= 2**31 - 256:
+        raise ValueError(f"{fn_name}: shape (A={A}, T={T}) outside the launch grid")
+    return A, M
+
+
 def synth_kernel(freqs, damps, amps, num_samples: int, sr: float):
     """(A, M) mode parameters -> (A, num_samples) signal.
 
@@ -122,21 +173,8 @@ def synth_kernel(freqs, damps, amps, num_samples: int, sr: float):
     global LAUNCHES
     if all(x.device.type == "cpu" for x in (freqs, damps, amps)):
         return synth_constant_modes_plain(freqs, damps, amps, num_samples, sr)
-    for name, x in (("freqs", freqs), ("damps", damps), ("amps", amps)):
-        if not x.is_cuda:
-            raise ValueError(f"synth_kernel: {name} is on {x.device}, expected CUDA")
-        if x.dtype != torch.float32:
-            raise TypeError(f"synth_kernel: {name} is {x.dtype}, the kernel takes float32")
-        if x.dim() != 2 or x.shape != freqs.shape:
-            raise ValueError(f"synth_kernel: {name} has shape {tuple(x.shape)}, expected (A, M) = {tuple(freqs.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"synth_kernel: {name} is not contiguous")
-        if x.device != freqs.device:
-            raise ValueError("synth_kernel: inputs on different devices")
-    A, M = freqs.shape
     T = int(num_samples)
-    if A > 65535 or T >= 2**31 - 256:
-        raise ValueError(f"synth_kernel: shape (A={A}, T={T}) outside the launch grid")
+    A, M = _check_cuda("synth_kernel", T, freqs=freqs, damps=damps, amps=amps)
     lib = _load()
     out = torch.empty((A, T), dtype=torch.float32, device=freqs.device)
     with torch.cuda.device(freqs.device):
@@ -151,10 +189,35 @@ def synth_kernel(freqs, damps, amps, num_samples: int, sr: float):
     return out
 
 
+def synth_kernel_bwd(freqs, damps, amps, g, num_samples: int, sr: float):
+    """(A, M) mode parameters and the (A, num_samples) cotangent g of the
+    signal -> (grad_f, grad_d, grad_amp), each (A, M).
+
+    CUDA tensors: launches the hand-written backward kernel (float32,
+    contiguous, g of shape (A, num_samples); anything else raises).  CPU
+    tensors: the plain version."""
+    global LAUNCHES_BWD
+    if all(x.device.type == "cpu" for x in (freqs, damps, amps, g)):
+        return synth_constant_modes_bwd_plain(freqs, damps, amps, g, num_samples, sr)
+    T = int(num_samples)
+    A, M = _check_cuda("synth_kernel_bwd", T, freqs=freqs, damps=damps, amps=amps, g=g)
+    lib = _load()
+    grad = torch.empty((3, A, M), dtype=torch.float32, device=freqs.device)
+    with torch.cuda.device(freqs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.synth_constant_modes_bwd_launch(
+            freqs.data_ptr(), damps.data_ptr(), amps.data_ptr(), g.data_ptr(),
+            grad.data_ptr(), A, M, T, float(sr), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"synth backward kernel launch failed with cudaError {err}")
+    LAUNCHES_BWD += 1
+    return grad[0], grad[1], grad[2]
+
+
 class SynthFn(torch.autograd.Function):
-    """Kernel forward; the backward recomputes the plain version under
-    autograd and returns its vector-Jacobian product (the (A, M, T)
-    intermediates exist only inside the backward)."""
+    """`synth_kernel` forward, `synth_kernel_bwd` backward: the kernels on
+    CUDA, the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, freqs, damps, amps, num_samples, sr):
@@ -165,8 +228,6 @@ class SynthFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         freqs, damps, amps = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_(True) for x in (freqs, damps, amps)]
-            out = synth_constant_modes_plain(*inputs, ctx.num_samples, ctx.sr)
-            grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None)
+        # out.sum() hands autograd an expanded, stride-0 g
+        return (*synth_kernel_bwd(freqs, damps, amps, g.contiguous(), ctx.num_samples, ctx.sr),
+                None, None)

@@ -1,5 +1,6 @@
-"""The port on the card: the synthesis kernel against its plain version, its
-autograd function and dispatch, and a short MaterialSyncTask run on CUDA.
+"""The port on the card: the synthesis kernels, forward and backward, against
+their plain versions, their autograd function and dispatch, and a short
+MaterialSyncTask run on CUDA.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
@@ -17,7 +18,9 @@ import torch
 
 from diffsound_torch.audio import synth_kernel
 from diffsound_torch.audio.oscillator import synth_constant_modes
-from diffsound_torch.audio.synth_kernel import synth_constant_modes_plain
+from diffsound_torch.audio.synth_kernel import (
+    SynthFn, synth_constant_modes_bwd_plain, synth_constant_modes_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -55,17 +58,58 @@ def test_kernel_matches_plain(cuda_device, A, M, T):
     assert bool(((out - ref).abs() <= bound).all())
 
 
+def _bwd_errors(got, f, d, a, g, T):
+    """Per gradient, max|got - ref| / max|ref| against the plain backward in
+    float64 on the card, and the same for the plain backward in float32,
+    the witness of what float32 alone costs."""
+    ref = synth_constant_modes_bwd_plain(f.double(), d.double(), a.double(), g.double(), T, SR)
+    f32 = synth_constant_modes_bwd_plain(f, d, a, g, T, SR)
+    rel = lambda x, y: float((x.double() - y).abs().max() / y.abs().max())
+    return [rel(x, y) for x, y in zip(got, ref)], [rel(x, y) for x, y in zip(f32, ref)]
+
+
 @pytest.mark.cuda
 def test_synthfn_grads_and_dispatch(cuda_device):
     f, d, a = (x.requires_grad_(True) for x in _modes(2, 16, cuda_device, seed=5))
-    before = synth_kernel.LAUNCHES
+    before, before_bwd = synth_kernel.LAUNCHES, synth_kernel.LAUNCHES_BWD
     out = synth_constant_modes(f, d, a, 1000, SR)
     assert synth_kernel.LAUNCHES == before + 1
     g = torch.autograd.grad(out.square().sum(), (f, d, a))
-    ref = synth_constant_modes_plain(f, d, a, 1000, SR)
-    g_ref = torch.autograd.grad(ref.square().sum(), (f, d, a))
-    for x, y in zip(g, g_ref):
-        torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-3 * float(y.abs().max()))
+    assert synth_kernel.LAUNCHES_BWD == before_bwd + 1
+    err, witness = _bwd_errors(g, f.detach(), d.detach(), a.detach(), 2 * out.detach(), 1000)
+    print(f"SynthFn backward rel err {err}, plain f32 {witness}")
+    assert max(err) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,M,T", [(1, 16, 8000), (8, 256, 8000), (3, 40, 1000), (2, 1500, 300)])
+def test_bwd_kernel_matches_plain(cuda_device, A, M, T):
+    f, d, a = _modes(A, M, cuda_device, seed=A + M)
+    g = torch.randn((A, T), generator=torch.Generator(cuda_device).manual_seed(M),
+                    device=cuda_device)
+    before = synth_kernel.LAUNCHES_BWD
+    got = synth_kernel.synth_kernel_bwd(f, d, a, g, T, SR)
+    torch.cuda.synchronize()
+    assert synth_kernel.LAUNCHES_BWD == before + 1
+    assert all(x.shape == (A, M) and x.dtype == torch.float32 for x in got)
+    err, witness = _bwd_errors(got, f, d, a, g, T)
+    print(f"backward kernel ({A},{M},{T}) rel err {err}, plain f32 {witness}")
+    assert max(err) <= 1e-4
+    again = synth_kernel.synth_kernel_bwd(f, d, a, g, T, SR)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics: bit-identical
+
+
+@pytest.mark.cuda
+def test_synthfn_backward_of_a_sum_takes_the_stride_0_cotangent(cuda_device):
+    f, d, a = (x.requires_grad_(True) for x in _modes(2, 64, cuda_device, seed=9))
+    out = SynthFn.apply(f, d, a, 8000, SR)
+    before = synth_kernel.LAUNCHES_BWD
+    g = torch.autograd.grad(out.sum(), (f, d, a))  # autograd hands an expanded ones
+    assert synth_kernel.LAUNCHES_BWD == before + 1
+    ones = torch.ones((2, 8000), device=cuda_device)
+    err, witness = _bwd_errors(g, f.detach(), d.detach(), a.detach(), ones, 8000)
+    print(f"SynthFn backward of out.sum() rel err {err}, plain f32 {witness}")
+    assert max(err) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -79,6 +123,13 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         synth_kernel.synth_kernel(f.t().contiguous().t(), d, a, 1000, SR)
     with pytest.raises(ValueError):
         synth_kernel.synth_kernel(f, d.cpu(), a, 1000, SR)
+    g = torch.ones((2, 1000), device=cuda_device)
+    with pytest.raises(ValueError):
+        synth_kernel.synth_kernel_bwd(f, d, a, g[:, :999], 1000, SR)
+    with pytest.raises(ValueError):
+        synth_kernel.synth_kernel_bwd(f, d, a, torch.ones((2, 1), device=cuda_device).expand(2, 1000), 1000, SR)
+    with pytest.raises(TypeError):
+        synth_kernel.synth_kernel_bwd(f, d, a, g.double(), 1000, SR)
 
 
 @pytest.mark.cuda
