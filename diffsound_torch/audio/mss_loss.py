@@ -1,11 +1,14 @@
-"""Multi-scale spectral losses (L1 / RMSE).
+"""Multi-scale spectral losses (L1 / RMSE / Sinkhorn-OT).
 
 Counterpart of `diffsound_tpu/audio/mss_loss.py`:
 
   * 'l1_loss':   time-weighted L1 on log + linear spectrograms, DC removed
   * 'rmse_loss': sqrt(MSE) on eps-anchored log spectrograms
-  * 'geomloss':  not ported yet (ROADMAP.md, Queue 1: the Sinkhorn early
-                 phase, `audio/sinkhorn.py`); raises NotImplementedError.
+  * 'geomloss':  debiased Sinkhorn over spectrogram columns as point clouds,
+                 with the predicted damped mode frequencies injected into
+                 the points' positions (`spec_to_points`): the gradient
+                 that reaches across large frequency mismatches in the
+                 early phase of material inference.
 
 `target_cache` precomputes the target-side spectrograms once per training
 run; passing it to `__call__` gives bit-identical losses.
@@ -15,16 +18,27 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from .sinkhorn import sinkhorn_divergence
 from .stft import spectrogram
 
-_GEOMLOSS_TODO = (
-    "loss_type='geomloss' needs the Sinkhorn divergence (audio/sinkhorn.py), "
-    "not ported yet: ROADMAP.md Queue 1, 'sinkhorn'"
-)
+
+def _interp_linear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """torch F.interpolate(mode='linear', align_corners=False) on the last
+    axis: x (..., T) -> (..., size)."""
+    T = x.shape[-1]
+    scale = T / size
+    pos = (np.arange(size) + 0.5) * scale - 0.5
+    pos = np.clip(pos, 0.0, T - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, T - 1)
+    w = torch.as_tensor(pos - lo, dtype=x.dtype, device=x.device)
+    lo, hi = (torch.as_tensor(i, device=x.device) for i in (lo, hi))
+    return x[..., lo] * (1.0 - w) + x[..., hi] * w
 
 
 def weighted_l1(x_pred, x_true):
@@ -34,6 +48,56 @@ def weighted_l1(x_pred, x_true):
     w = w / w.sum() * T
     w = w[None, None, :]
     return (x_pred[:, 1:, :] * w - x_true[:, 1:, :] * w).abs().mean()
+
+
+def _last_writes(bins: torch.Tensor, vals: torch.Tensor, ok: torch.Tensor, F: int):
+    """What `zeros(F).at[bins].set(where(ok, vals, 0))` and
+    `zeros(F, bool).at[bins].set(ok)` leave, deterministically: where several
+    modes write one bin, the last in mode order wins, for the value and the
+    mask alike (the JAX package's rule on the CPU).  Returns (upd (F,),
+    mask (F,)); the gradient reaches only the winning mode's value."""
+    M = bins.shape[0]
+    hit = bins[None, :] == torch.arange(F, device=bins.device)[:, None]  # (F, M)
+    order = torch.arange(1, M + 1, device=bins.device)
+    last = (hit * order).amax(dim=1) - 1  # (F,), -1 where no mode writes
+    li = last.clamp(min=0)
+    mask = (last >= 0) & ok[li]
+    return torch.where(mask, vals[li], torch.zeros_like(vals[li])), mask
+
+
+def spec_to_points(
+    spec: torch.Tensor,
+    freqs: Optional[torch.Tensor] = None,
+    sample_rate: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, F, T) spectrogram -> (B, F, 4) point cloud: 3 time-pooled
+    features and the normalized frequency position.  Predicted mode
+    frequencies (M,) move the positions of their +-2 neighbouring bins so
+    optimal transport can move spectral mass toward or away from them.
+    Features are detached: the gradient path is through the positions."""
+    B, F, T = spec.shape
+    feats = _interp_linear(spec.detach(), 3)  # (B, F, 3)
+    pos = (torch.arange(F, dtype=spec.dtype, device=spec.device) / F)[None, :].expand(B, F)
+
+    if freqs is not None:
+        f = freqs.reshape(-1).to(spec.dtype)  # (M,)
+        centers = F / (sample_rate // 2) * f  # fractional bin of each mode
+        # width-2 neighbourhood, outer offsets written first so the center
+        # (w=0) wins on collision
+        for wdt in (2, 1, 0):
+            for sgn in (-1.0, 1.0) if wdt > 0 else (1.0,):
+                tgt = centers + sgn * wdt
+                bins = torch.floor(tgt.detach()).to(torch.int64)
+                ok = (bins >= 0) & (bins < F)
+                upd, mask = _last_writes(bins.clamp(0, F - 1), tgt / F, ok, F)
+                pos = torch.where(mask[None, :], upd[None, :], pos)
+
+    return torch.cat([feats, pos[..., None]], dim=-1)  # (B, F, 4)
+
+
+def _peak_normalize(x):
+    """x over its detached max |x| along the last axis."""
+    return x / (x.detach().abs().amax(dim=-1, keepdim=True) + 1e-7)
 
 
 @dataclass(frozen=True)
@@ -52,7 +116,11 @@ class SSSLoss:
         return int(self.n_fft * (1 - self.overlap))
 
     def log_func(self, x):
-        return torch.log2(x + self.eps) - math.log2(self.eps)
+        """log2(x + eps) - log2(eps), returned in float64 as the JAX
+        package's: it subtracts a numpy float64 constant, which (x64 on)
+        promotes its log spectra, and so its geomloss log-feature Sinkhorn
+        and its rmse, to float64."""
+        return torch.log2(x + self.eps).to(torch.float64) - math.log2(self.eps)
 
     def log_spec(self, x, scale=1.0):
         S = spectrogram(x, self.n_fft, self.hop)
@@ -67,7 +135,11 @@ class SSSLoss:
         if self.loss_type == "rmse_loss":
             return (self.log_spec(x_true, scale),)
         if self.loss_type == "geomloss":
-            raise NotImplementedError(_GEOMLOSS_TODO)
+            x_t = _peak_normalize(x_true.to(torch.float64))
+            return (
+                spec_to_points(self.log_spec(x_t, scale) / 40.0),
+                spec_to_points(spectrogram(x_t, self.n_fft, self.hop)),
+            )
         raise ValueError(f"unknown loss type {self.loss_type}")
 
     def __call__(self, x_pred, x_true, freqs=None, scale=1.0, target_cache=None):
@@ -89,7 +161,24 @@ class SSSLoss:
             return torch.sqrt(((lp - lt) ** 2).mean())
 
         if self.loss_type == "geomloss":
-            raise NotImplementedError(_GEOMLOSS_TODO)
+            pts_log_t, pts_lin_t = (
+                target_cache if target_cache is not None
+                else self.target_cache(x_true, scale)
+            )
+            # From the synthesized signal on, the loss runs in float64: the
+            # JAX package's log branch is float64 (see log_func), and in
+            # float32 the linear branch's costs (up to 1e10, over eps = 1e-4)
+            # and its spectrogram put the loss and its gradient further from
+            # float64 than the JAX package's own float32 step (chip_smoke.py
+            # holds the card to that gap)
+            x_p = _peak_normalize(x_pred.to(torch.float64))
+            lin_p = spectrogram(x_p, self.n_fft, self.hop)
+            log_p = self.log_spec(x_p, scale) / 40.0
+            loss_log = sinkhorn_divergence(
+                spec_to_points(log_p, freqs, self.sample_rate), pts_log_t).sum()
+            loss_lin = sinkhorn_divergence(
+                spec_to_points(lin_p, freqs, self.sample_rate), pts_lin_t).sum()
+            return self.alpha * loss_log + loss_lin
         raise ValueError(f"unknown loss type {self.loss_type}")
 
 
@@ -103,10 +192,6 @@ class MSSLoss:
     overlap: float = 0.75
     eps: float = 1e-7
     loss_type: str = "l1_loss"
-
-    def __post_init__(self):
-        if self.loss_type == "geomloss":
-            raise NotImplementedError(_GEOMLOSS_TODO)
 
     def _scales(self):
         return [

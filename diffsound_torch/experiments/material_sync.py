@@ -1,16 +1,23 @@
 """Synthetic-material inference: recover (E, nu) from modal audio.
 
-Counterpart of `diffsound_tpu/experiments/material_sync.py` for the
-multi-scale-L1 recipe: ground-truth audio from an order-2 fixed-material
-model and a fixed-table oscillator; the trainable model optimizes its
-material bins so its synthesized audio matches, with Adam and a step-decayed
-learning rate, and a warm LOBPCG eigensolve refresh every 15 epochs.
+Counterpart of `diffsound_tpu/experiments/material_sync.py`: ground-truth
+audio from an order-2 fixed-material model and a fixed-table oscillator;
+the trainable model's material is then recovered by one of three recipes:
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md item):
-the `newton` recipe (models/modal_fit.py + audio/freq_loss.py), the
-`freq_chamfer` early phase and late auxiliary (audio/freq_loss.py), the
-`geomloss` Sinkhorn early phase (audio/sinkhorn.py), and the parallel
-multi-pair trainer (parallel/).
+  * `newton` (the CLI's default): the closed-form modal-Newton fit
+    (models/modal_fit.py) on spectral peaks of the target, arbitrated over
+    three peak-extraction windows by union coverage, then a short polish
+    with the multi-scale L1 loss plus the freq-chamfer auxiliary;
+  * `adam`: the epoch trainer with a freq-chamfer early phase
+    (audio/freq_loss.py) and the multi-scale L1 late phase with the
+    freq-chamfer auxiliary;
+  * `reference`: the epoch trainer with the Sinkhorn early phase
+    (`geomloss`, audio/sinkhorn.py) and the plain multi-scale L1 late phase.
+
+The epoch trainer runs Adam with a step-decayed learning rate, reset at the
+switch from the early to the late phase, and a warm LOBPCG eigensolve
+refresh every 15 epochs.  Not ported yet: the parallel multi-pair trainer
+(parallel/), which raises NotImplementedError.
 
 exp_mode: 0 ord1/frozen-nu (baseline), 1 ord2/frozen-nu, 2 ord1/learn-nu,
 3 ord2/learn-nu (full DiffSound).
@@ -30,23 +37,22 @@ import numpy as np
 import torch
 
 from .. import default_dtype, resolve_device
+from ..audio.freq_loss import (
+    extract_spectral_peaks, freq_chamfer_loss, peak_coverage_score, union_peaks,
+)
 from ..audio.mss_loss import MSSLoss
 from ..audio.oscillator import TraditionalOscillatorParams
 from ..convert import params_from_jax
-from ..fem.material import Material
+from ..fem.material import Material, lame_params
 from ..fem.mesh import TetMesh
+from ..models.modal_fit import ModalNewtonFitter
 from ..models.sound_obj import build_model
+from ..solvers.diff_eigs import undamped_frequencies
 from ..utils.logging import MetricLogger
 
 EIGEN_DECOMPOSE_CYCLE = 15
-
-_FREQ_LOSS_TODO = (
-    "needs audio/freq_loss.py, not ported yet: ROADMAP.md Queue 1, "
-    "'freq_loss + modal_fit'"
-)
-_SINKHORN_TODO = (
-    "needs audio/sinkhorn.py, not ported yet: ROADMAP.md Queue 1, 'sinkhorn'"
-)
+EARLY_LOSS_TYPES = ("freq_chamfer", "geomloss")
+RECIPES = ("newton", "adam", "reference")
 
 # The 16 flagship (init, target) material pairs: the JAX package's
 # random_material_pairs(jax.random.PRNGKey(0), 16), generated once and kept
@@ -107,6 +113,7 @@ class MaterialSyncTask:
     exp_mode: int = 3
     dtype: Optional[torch.dtype] = None
     device: object = "cuda"
+    solver: str = "auto"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -154,7 +161,7 @@ class MaterialSyncTask:
         """Ground-truth audio (1, frame_num) from an order-2 fixed-material
         model, and its undamped frequencies (numpy)."""
         gt_model = self._build(gt_mat, 2, "gt")
-        eig = gt_model.eigen_decomposition()
+        eig = gt_model.eigen_decomposition(method=self.solver)
         with torch.no_grad():
             freqs = gt_model.get_undamped_freqs({}, eig)
             gt_osc = TraditionalOscillatorParams(
@@ -185,26 +192,34 @@ class MaterialSyncTask:
         media_every: int = 300,
         early_loss_type: str = "freq_chamfer",
         late_freq_weight: float = 300.0,
+        init_values=None,
         init_logits: Optional[dict] = None,
     ) -> dict:
         """Train the material bins against `gt_audio` (A, T).
 
-        The port runs the late multi-scale-L1 phase: early_loss_epoch must
-        be 0, and with early_loss_type 'freq_chamfer' late_freq_weight must
-        be 0 (both need modules not ported yet).  init_logits: optional dict
-        of numpy logits used instead of the seeded random draw (to start from
+        Epochs before early_loss_epoch use the early loss, the rest the
+        5-scale L1, with the optimizer reset to (lr_late, 0.95) at the
+        switch.  early_loss_type: 'freq_chamfer' (default; spectral-peak
+        matching with no synthesis, audio/freq_loss.py) or 'geomloss' (the
+        reference's Sinkhorn recipe on MSSLoss([2048, 1024])).
+        late_freq_weight: weight of the freq-chamfer auxiliary added to the
+        late L1 (freq_chamfer only; 0 disables).
+
+        The start: the seeded random logits, pretrained to the init table
+        material when `pretrain` and no init_values; init_values (E, nu)
+        places them exactly there (the modal-Newton handoff); init_logits,
+        a dict of numpy logits, replaces the random draw (to start from
         exactly the JAX package's draw).
 
         Returns recovered E/nu, the loss per epoch, the log history, and the
         timing: wall seconds of each cold solve (host ARPACK plus the modal
-        cache), of each warm refresh with its LOBPCG iterations and Lame
-        values, and of all steps, with a device sync at each solve and at
-        the end of each chunk of steps."""
-        if early_loss_epoch > 0:
-            todo = _SINKHORN_TODO if early_loss_type == "geomloss" else _FREQ_LOSS_TODO
-            raise NotImplementedError(f"early loss phase '{early_loss_type}' {todo}")
-        if early_loss_type == "freq_chamfer" and late_freq_weight > 0:
-            raise NotImplementedError(f"late_freq_weight > 0 {_FREQ_LOSS_TODO}")
+        cache) with its Lame values, of each warm refresh with its LOBPCG
+        iterations and Lame values, and of all steps, with a device sync at
+        each solve and at the end of each chunk of steps; `cold_eig` is the
+        last cold solve's EigenState."""
+        if early_loss_type not in EARLY_LOSS_TYPES:
+            raise ValueError(f"early_loss_type must be one of {EARLY_LOSS_TYPES}, "
+                             f"got {early_loss_type!r}")
         dev = self.device
         model = self._build(init_mat, self.mesh_order, self.task)
         gt_audio = gt_audio.to(device=dev, dtype=self.dtype)
@@ -213,14 +228,21 @@ class MaterialSyncTask:
             Material.of(init_mat),
         )
         forces = impulse_forces(gt_audio.shape[0], self.force_frame_num, self.dtype, dev)
+        early_loss = MSSLoss([2048, 1024], self.sample_rate, loss_type="geomloss")
         late_loss = MSSLoss([1024, 512, 256, 128, 64], self.sample_rate, loss_type="l1_loss")
         rmse_loss = MSSLoss([1024, 512, 256, 128, 64], self.sample_rate, loss_type="rmse_loss")
+        chamfer = early_loss_type == "freq_chamfer"
+        if chamfer:
+            pk, pw = extract_spectral_peaks(gt_audio.cpu().numpy(), self.sample_rate)
+            peaks, wts = (torch.as_tensor(x, dtype=self.dtype, device=dev) for x in (pk, pw))
 
         if init_logits is None:
             params = model.init_params(seed, pretrain=False)
         else:
             params = params_from_jax(init_logits, dev)
-        if pretrain:
+        if init_values is not None:
+            params = model.bins.fit_to(params, *init_values)
+        elif pretrain:
             params = model.bins.pretrain(params)
         for v in params.values():
             v.requires_grad_(True)
@@ -232,6 +254,7 @@ class MaterialSyncTask:
             return make_opt(lr_early, 0.9) if epoch < early_loss_epoch else make_opt(lr_late, 0.95)
 
         with torch.no_grad():
+            tc_early = None if chamfer else early_loss.target_cache(gt_audio)
             tc_late = late_loss.target_cache(gt_audio)
             tc_rmse = rmse_loss.target_cache(gt_audio)
 
@@ -239,6 +262,22 @@ class MaterialSyncTask:
             freqs = model.get_undamped_freqs_cached(params, cache)
             sig, damped = osc(freqs, forces, dtype=self.dtype)
             return loss_fn(sig, None, damped, 1.0, target_cache=tc)
+
+        def chamfer_of(cache):
+            freqs = model.get_undamped_freqs_cached(params, cache)
+            return freq_chamfer_loss(freqs, peaks, wts, self.sample_rate)
+
+        def early_loss_fn(cache):
+            if chamfer:
+                # pure frequency matching: no synthesis, no STFT
+                return chamfer_of(cache)
+            return loss_with(early_loss, cache, tc_early)
+
+        def late_loss_fn(cache):
+            l1 = loss_with(late_loss, cache, tc_late)
+            if chamfer and late_freq_weight > 0:
+                return l1 + late_freq_weight * chamfer_of(cache)
+            return l1
 
         opt, sched = phase_opt(0)
         ckpt = None
@@ -260,18 +299,21 @@ class MaterialSyncTask:
 
         eig = cache = None
         history, losses = [], []
-        cold_s, refresh_s, refresh_iters, refresh_lame = [], [], [], []
+        cold_s, cold_lame, refresh_s, refresh_iters, refresh_lame = [], [], [], [], []
+        cold_eig = None
         step_s = 0.0
         t_start = time.perf_counter()
 
         def next_boundary(e):
-            """First epoch > e where host work is due (refresh / logging /
-            checkpoint / end)."""
+            """First epoch > e where host work is due (refresh / phase
+            switch / logging / checkpoint / end)."""
             cands = [max_epoch]
             for period in (EIGEN_DECOMPOSE_CYCLE, log_every):
                 cands.append((e // period + 1) * period)
             if ckpt is not None:
                 cands.append((e // checkpoint_every + 1) * checkpoint_every)
+            if e < early_loss_epoch:
+                cands.append(early_loss_epoch)
             return min(c for c in cands if c > e)
 
         epoch = start_epoch
@@ -279,10 +321,10 @@ class MaterialSyncTask:
             if epoch % EIGEN_DECOMPOSE_CYCLE == 0 or eig is None:
                 t0 = time.perf_counter()
                 warm = eig is not None
-                if warm:
+                if warm and self.solver != "arpack":
                     eig, cache = model.refresh(params, eig)
                 else:
-                    eig = model.eigen_decomposition(params)
+                    eig = model.eigen_decomposition(params, prev=eig, method=self.solver)
                     cache = model.modal_cache(eig)
                 _sync(dev)
                 if warm:
@@ -291,16 +333,19 @@ class MaterialSyncTask:
                     refresh_lame.append(model.material_lame_floats(params))
                 else:
                     cold_s.append(time.perf_counter() - t0)
+                    cold_lame.append(model.material_lame_floats(params))
+                    cold_eig = eig
             if epoch == early_loss_epoch:
                 opt, sched = make_opt(lr_late, 0.95)
             log_this = epoch % log_every == 0
             log_epoch = epoch
             n = next_boundary(epoch) - epoch
+            step_loss = early_loss_fn if epoch < early_loss_epoch else late_loss_fn
             t0 = time.perf_counter()
             chunk = []
             for _ in range(n):
                 opt.zero_grad(set_to_none=True)
-                loss = loss_with(late_loss, cache, tc_late)
+                loss = step_loss(cache)
                 loss.backward()
                 model.bins.mask_grads(params)
                 opt.step()
@@ -352,20 +397,124 @@ class MaterialSyncTask:
             "poisson": poisson,
             "rmse": rmse,
             "history": history,
-            "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
+            # the geomloss phase's losses are float64 (see audio/mss_loss.py)
+            "losses": (torch.stack([x.double() for x in losses]).cpu().numpy()
+                       if losses else np.zeros(0)),
             "wall_s": wall,
             "iters_per_sec": n_steps / wall,
             "eig": eig,
             "cold_s": cold_s,
+            "cold_lame": cold_lame,
+            "cold_eig": cold_eig,
             "refresh_s": refresh_s,
             "refresh_iters": refresh_iters,
             "refresh_lame": refresh_lame,
             "step_s": step_s,
         }
 
-    def train_newton(self, *args, **kwargs):
-        """Modal-Newton material fit: not ported yet."""
-        raise NotImplementedError(f"the newton recipe {_FREQ_LOSS_TODO}")
+    def train_newton(
+        self,
+        init_mat,
+        gt_audio,
+        rounds: int = 20,
+        polish_epochs: int = 300,
+        logger: MetricLogger = None,
+        seed: int = 0,
+        verbose: bool = True,
+        extraction_windows=(("hann", 4096), ("blackmanharris", 4096),
+                            ("blackmanharris", None)),
+        **train_kw,
+    ) -> dict:
+        """Closed-form modal-Newton material fit (models/modal_fit.py),
+        then an optional short polish: `train` from the fitted (E, nu) with
+        no early phase, for polish_epochs.
+
+        extraction_windows: peak-extraction scheme candidates, each a
+        (window, n_fft) pair (n_fft None: one whole-signal window; a bare
+        int means Blackman-Harris at that n_fft).  Every scheme's peak set
+        is fit on its own, the eigenstate carried from one scheme's fit to
+        the next as a warm start, and the union-coverage score
+        (audio.freq_loss.peak_coverage_score against the merged peak set of
+        all schemes) picks the fit: no single scheme works for all 16
+        flagship pairs, and neither the fit's own match weight nor the
+        smooth chamfer can arbitrate between them.
+
+        The result has the polish's keys (see `train`) and fit_rounds,
+        newton_E, newton_nu; `fit` holds the fit's wall seconds, its
+        eigensolves (ModalNewtonFitter.solves: warm or cold, LOBPCG
+        iterations, seconds) and each window's E, nu and coverage score."""
+        t0 = time.perf_counter()
+        model = self._build(init_mat, self.mesh_order, self.task)
+        mu0, lam0 = lame_params(init_mat[1] / init_mat[0], init_mat[2])
+
+        schemes = [
+            ("blackmanharris", w) if not isinstance(w, (tuple, list)) else tuple(w)
+            for w in extraction_windows
+        ]
+        audio = gt_audio.cpu().numpy()
+        peak_sets = [
+            extract_spectral_peaks(audio, self.sample_rate, n_fft=nfft, window=win)
+            for win, nfft in schemes
+        ]
+        union_f, union_w = union_peaks(peak_sets)
+        fit = None
+        eig_carry = None
+        solves, windows = [], []
+        for (win, nfft), (peaks, wts) in zip(schemes, peak_sets):
+            fitter = ModalNewtonFitter(
+                model, peaks, wts, self.sample_rate, init_mat[3], init_mat[4]
+            )
+            cand = fitter.fit(float(mu0), float(lam0), rounds=rounds,
+                              verbose=verbose, eig=eig_carry)
+            solves.extend(fitter.solves)
+            eig_carry = cand["eig"]  # warm-start the next candidate
+            with torch.no_grad():
+                cache = model.modal_cache(cand["eig"])
+                lams = (
+                    cache.eigenvalues + cand["mu"] * cache.q_mu + cand["lam"] * cache.q_lam
+                    - cache.eigenvalues * cache.q_m
+                )[model.extra_modes:]
+                freqs = undamped_frequencies(lams.float()).cpu().numpy()
+            cand["score"] = peak_coverage_score(
+                freqs, union_f, union_w, self.sample_rate
+            )
+            windows.append({"window": win, "n_fft": nfft, "E": cand["E"],
+                            "nu": cand["nu"], "score": cand["score"],
+                            "rounds": len(cand["history"])})
+            if verbose:
+                print(f"  window {win}@{nfft}: E {cand['E']:.4g} nu "
+                      f"{cand['nu']:.4f} union coverage "
+                      f"{cand['score']:.4f}")
+            if fit is None or cand["score"] > fit["score"]:
+                fit = cand
+        fit_wall = time.perf_counter() - t0
+        fit_info = {"wall_s": fit_wall, "solves": solves, "windows": windows}
+        if logger:
+            for rec in fit["history"]:
+                logger.scalars(
+                    {"newton_E": rec["E"], "newton_nu": rec["nu"]}, rec["round"],
+                )
+        if polish_epochs <= 0:
+            return {
+                "youngs": fit["E"], "poisson": fit["nu"],
+                "rmse": float("nan"), "history": fit["history"],
+                "wall_s": fit_wall,
+                "iters_per_sec": len(fit["history"]) / fit_wall,
+                "fit_rounds": len(fit["history"]),
+                "newton_E": fit["E"], "newton_nu": fit["nu"], "fit": fit_info,
+            }
+        res = self.train(
+            init_mat, gt_audio, max_epoch=polish_epochs,
+            early_loss_epoch=0, logger=logger, seed=seed, verbose=verbose,
+            init_values=(fit["E"], fit["nu"]), pretrain=False,
+            **train_kw,
+        )
+        res["fit_rounds"] = len(fit["history"])
+        res["newton_E"], res["newton_nu"] = fit["E"], fit["nu"]
+        res["fit"] = fit_info
+        res["wall_s"] += fit_wall
+        res["iters_per_sec"] = polish_epochs / res["wall_s"]
+        return res
 
 
 def main(argv=None):
@@ -380,8 +529,8 @@ def main(argv=None):
             "ROADMAP.md Queue 1, 'parallel'"
         )
     recipe = getattr(flags, "recipe", "newton")
-    if recipe == "newton":
-        raise NotImplementedError(f"recipe 'newton' {_FREQ_LOSS_TODO}")
+    if recipe not in RECIPES:
+        raise ValueError(f"recipe must be one of {RECIPES}, got {recipe!r}")
     os.makedirs(flags.out_dir, exist_ok=True)
 
     mesh_path = flags.mesh_dir
@@ -419,24 +568,33 @@ def main(argv=None):
         print(f"material pair {i}: target E={gt_mat[1]:.4g} nu={gt_mat[2]:.4f} "
               f"init E={init_mat[1]:.4g} nu={init_mat[2]:.4f}")
         gt_audio, _ = task.make_gt(gt_mat)
-        res = task.train(
-            init_mat, gt_audio,
-            max_epoch=flags.max_epoch,
-            early_loss_epoch=flags.early_loss_epoch,
-            logger=logger,
-            seed=i,
-            checkpoint_dir=os.path.join(flags.out_dir, f"ckpt_pair{i}"),
-            checkpoint_every=300,
-            media_dir=os.path.join(flags.out_dir, f"media_pair{i}"),
-            early_loss_type=getattr(
-                flags, "early_loss_type",
-                "geomloss" if recipe == "reference" else "freq_chamfer",
-            ),
-            late_freq_weight=getattr(
-                flags, "late_freq_weight",
-                0.0 if recipe == "reference" else 300.0,
-            ),
-        )
+        if recipe == "newton":
+            res = task.train_newton(
+                init_mat, gt_audio,
+                rounds=getattr(flags, "newton_rounds", 20),
+                polish_epochs=getattr(flags, "polish_epochs", 300),
+                logger=logger, seed=i,
+                media_dir=os.path.join(flags.out_dir, f"media_pair{i}"),
+            )
+        else:
+            res = task.train(
+                init_mat, gt_audio,
+                max_epoch=flags.max_epoch,
+                early_loss_epoch=flags.early_loss_epoch,
+                logger=logger,
+                seed=i,
+                checkpoint_dir=os.path.join(flags.out_dir, f"ckpt_pair{i}"),
+                checkpoint_every=300,
+                media_dir=os.path.join(flags.out_dir, f"media_pair{i}"),
+                early_loss_type=getattr(
+                    flags, "early_loss_type",
+                    "geomloss" if recipe == "reference" else "freq_chamfer",
+                ),
+                late_freq_weight=getattr(
+                    flags, "late_freq_weight",
+                    0.0 if recipe == "reference" else 300.0,
+                ),
+            )
         with open(results_path, "a") as f:
             f.write(
                 f"material:{i}\nyoungs:{res['youngs']}\npoisson:{res['poisson']}\n"

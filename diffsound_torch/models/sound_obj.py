@@ -186,18 +186,49 @@ class DiffSoundObject:
             torch.zeros(k, dtype=self.dtype, device=self.device),
         )
 
-    def eigen_decomposition(self, params=None, sigma: float = 20000.0) -> EigenState:
-        """Cold solve of the generalized pencil for the mode_num + extra_modes
-        smallest eigenpairs: host ARPACK shift-invert (LOBPCG with Jacobi
-        preconditioning converges too slowly from random vectors).  Warm
-        solves go through `refresh`."""
-        return self.eigen_decomposition_at_lame(*self.material_lame_floats(params), sigma)
+    def eigen_decomposition(
+        self,
+        params=None,
+        prev: Optional[EigenState] = None,
+        method: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        sigma: float = 20000.0,
+    ) -> EigenState:
+        """Solve the generalized pencil for the mode_num + extra_modes
+        smallest eigenpairs.
+
+        method "auto" (default): host ARPACK shift-invert when cold (LOBPCG
+        with Jacobi preconditioning converges too slowly from random
+        vectors), LOBPCG on the device warm-started from `prev` when given.
+        "arpack" and "lobpcg" force one solver; a cold LOBPCG starts from
+        random vectors drawn from `generator` (default: seed 0 on the
+        model's device)."""
+        mu, lam = self.material_lame_floats(params)
+        if method == "auto":
+            method = "lobpcg" if prev is not None else "arpack"
+        if method == "arpack":
+            return self._arpack_solve(mu, lam, sigma)
+        if method != "lobpcg":
+            raise ValueError(f"unknown eigensolver method {method!r}")
+        if prev is not None:
+            x0 = prev.eigenvectors
+        else:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            k = self.mode_num + self.extra_modes
+            x0 = torch.randn((self.num_dof, k), generator=generator, dtype=self.dtype,
+                             device=self.device)
+        return self._lobpcg_solve(mu, lam, x0)
 
     def eigen_decomposition_at_lame(
-        self, mu: float, lam: float, sigma: float = 20000.0
+        self, mu: float, lam: float, prev: Optional[EigenState] = None,
+        sigma: float = 20000.0,
     ) -> EigenState:
-        """The cold host ARPACK solve at explicit density-normalized Lame
-        values."""
+        """eigen_decomposition at explicit density-normalized Lame values
+        (the modal-Newton fit iterates over materials without bin params):
+        warm LOBPCG when `prev` is given, host ARPACK cold."""
+        if prev is not None:
+            return self._lobpcg_solve(float(mu), float(lam), prev.eigenvectors)
         return self._arpack_solve(float(mu), float(lam), sigma)
 
     # -- per-refresh quadratic-form cache ----------------------------------

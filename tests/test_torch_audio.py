@@ -90,5 +90,12 @@ def test_mss_loss_with_target_cache(loss_type):
 
 
 def test_geomloss_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="sinkhorn"):
-        tmss.MSSLoss([2048, 1024], 32000.0, loss_type="geomloss")
+    """The Sinkhorn item of the roadmap is done: `geomloss` builds and
+    scores (its parity is tests/test_torch_sinkhorn.py), and only a loss
+    type that does not exist raises."""
+    loss = tmss.MSSLoss([256, 128], 32000.0, loss_type="geomloss")
+    x = torch.as_tensor(_signal(1, 2000, 5))
+    value = loss(x, torch.as_tensor(_signal(1, 2000, 6)), torch.tensor([440.0, 3000.0]), 1.0)
+    assert torch.isfinite(value)
+    with pytest.raises(ValueError, match="unknown loss type"):
+        tmss.MSSLoss([256], 32000.0, loss_type="emd")(x, x)

@@ -4,6 +4,7 @@ its flagship material pairs are the JAX package's draw."""
 
 import ast
 import inspect
+import json
 import pathlib
 
 import numpy as np
@@ -15,9 +16,11 @@ import jax
 from diffsound_tpu.experiments.material_sync import random_material_pairs
 
 from diffsound_torch.audio import synth_kernel
+from diffsound_torch.audio.mss_loss import spec_to_points
 from diffsound_torch.audio.oscillator import synth_constant_modes
+from diffsound_torch.experiments import material_sync
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
-from diffsound_torch.fem.mesh import cube_tet_mesh
+from diffsound_torch.fem.mesh import cube_tet_mesh, write_msh
 from diffsound_torch.models.sound_obj import DiffSoundObject, build_model
 
 torch.set_num_threads(2)
@@ -63,6 +66,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         MaterialSyncTask(mesh=mesh, mode_num=2)
     # asked for explicitly, the CPU runs (in float64)
     assert build_model(mesh=mesh, mode_num=2, order=1, device="cpu").dtype == torch.float64
+
+
+@pytest.mark.parametrize("recipe", ["newton", "adam", "reference"])
+def test_cli_recipes_raise_without_cuda(tmp_path, monkeypatch, recipe):
+    """The CLI, whatever its recipe, runs on the card unless the config
+    says "device": "cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = cube_tet_mesh(1)
+    msh = tmp_path / "c.msh"
+    write_msh(str(msh), mesh.vertices, mesh.tets)
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({"mesh_dir": str(msh), "out_dir": str(tmp_path / "o"),
+                               "mode_num": 2, "sample_rate": 32000, "frame_num": 500,
+                               "force_frame_num": 10, "exp_mode": 3, "recipe": recipe}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        material_sync.main(["--config", str(cfg)])
+
+
+def test_spec_to_points_is_deterministic():
+    """Two modes in one bin and one above Nyquist: the bins' writes are
+    resolved by a fixed rule, so repeated calls agree bit for bit."""
+    spec = torch.rand((1, 129, 5), generator=torch.Generator().manual_seed(0),
+                      dtype=torch.float64)
+    freqs = torch.tensor([1000.0, 1004.0, 15950.0, 17500.0], dtype=torch.float64)
+    first = spec_to_points(spec, freqs, 32000.0)
+    assert all(torch.equal(first, spec_to_points(spec, freqs, 32000.0)) for _ in range(3))
 
 
 class _CudaLooking(torch.Tensor):
