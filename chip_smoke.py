@@ -36,7 +36,8 @@ fails the run by raising:
    (20,577 DOF): the reference recipe (45 Sinkhorn `geomloss` epochs, then
    15 L1 epochs) and the default epoch recipe (15 freq-chamfer epochs, then
    15 of L1 + 300 x chamfer); one geomloss step in f32 on the card against
-   the port's f64 on the CPU, gated by the JAX package's own f32 gap; the
+   the port's f64 on the CPU, at the reference run's params and at ten
+   seeded steps, each gated by the JAX package's own f32 gap; the
    geomloss step's peak memory and profile; the modal-Newton fit on this
    mesh against the JAX package's on the same mesh.
 5. CLI phase: `python -m diffsound_torch.experiments.material_sync`'s
@@ -281,13 +282,40 @@ def kernel_phase(device):
 
 MAT = (2700, 7.2e10, 0.19, 6, 1e-7)
 # The JAX package's own float32-against-float64 gap for one geomloss step at
-# the flagship width, on the CPU (tests/test_torch_geomloss_f32.py,
-# GEOMLOSS_F32_VALUE_GAP and GEOMLOSS_F32_GRAD_COS, read there at the ten
-# seeds of GEOMLOSS_SEEDS): the worst loss gap and gradient cosine of the
-# ten, rounded up in the second digit.
+# the flagship width on the CPU, at each seed: (relative loss gap, relative
+# error of the frequency gradient), as tests/test_torch_geomloss_f32.py reads
+# them.  The card's float32 step at a seed is held to GEOMLOSS_MARGIN times
+# the larger of JAX's gap at that seed and JAX's median over the ten: a
+# seed's gap is a draw of the signal's float32 rounding, and JAX's loss gap
+# at seed 13 fell 60 times below its median.  The port's float32 on the CPU
+# reads 0.84-2.22 times JAX's loss gap and 0.38-3.11 times its gradient
+# error at the same seeds.
 GEOMLOSS_SEEDS = tuple(range(11, 21))
-GEOMLOSS_F32_VALUE_GAP = 1.0e-4
-GEOMLOSS_F32_GRAD_COS = 1 - 9.1e-6
+JAX_GEOMLOSS_F32_GAP = {
+    11: (5.281e-05, 6.235e-04), 12: (3.988e-05, 1.285e-03), 13: (4.275e-07, 1.496e-03),
+    14: (9.995e-05, 3.895e-04), 15: (3.585e-05, 1.132e-03), 16: (1.624e-05, 4.302e-03),
+    17: (1.447e-05, 5.513e-04), 18: (2.405e-06, 8.995e-04), 19: (2.157e-05, 4.170e-04),
+    20: (3.047e-05, 6.958e-04),
+}
+GEOMLOSS_MARGIN = 4.0
+
+
+def geomloss_gate(seed=None):
+    """(loss gap, gradient error) the card's f32 geomloss step is held to:
+    GEOMLOSS_MARGIN times the larger of JAX's gap at `seed` and JAX's
+    median; at a step with no JAX reading (seed None), JAX's worst."""
+    import statistics
+
+    cols = list(zip(*JAX_GEOMLOSS_F32_GAP.values()))
+    if seed is None:
+        return tuple(max(c) for c in cols)
+    return tuple(GEOMLOSS_MARGIN * max(g, statistics.median(c))
+                 for g, c in zip(JAX_GEOMLOSS_F32_GAP[seed], cols))
+# The linear-spectrum Sinkhorn divergence alone in f32 against f64 on the
+# same f32 points (lin_clouds): the port's CPU f32 reads 4.0e-6 / 3.0e-6 at
+# n_fft 2048 / 1024, the JAX package's 2.0e-7 / 3.5e-8, the strided-transpose
+# fault of the first port 2.3e-4 at 1024 (tests/test_torch_sinkhorn.py).
+SINKHORN_F32_GAP = 3e-5
 # The JAX package's modal-Newton fit (E, nu) of flagship pair 0 on
 # cube_tet_mesh(9, 0.3) at order 2 (20,577 DOF), float32, from
 # `python -m scripts.jax_newton_reference --n 9 --pair 0`.  It misses the
@@ -295,7 +323,10 @@ GEOMLOSS_F32_GRAD_COS = 1 - 9.1e-6
 # candidate c = 0.142 converges to a wrong fixed point whose match weight
 # (2.75) beats the right candidate's (c = 0.176: E 1.726e10, nu 0.3252,
 # match weight 2.67) in every extraction window.  The port's fit is held to
-# it, at 20,577 DOF and at 59,049.
+# it, at 20,577 DOF and at 59,049: JAX is not run at 59,049 DOF (a
+# full-size configuration runs only on the card, whose machine has no JAX),
+# and the two fixed points lie 20% apart in E and 0.29 in nu, ten times
+# the gate, so the gate tells them apart at either mesh.
 JAX_NEWTON_PAIR0 = (13706449104.670244, 0.03435030386545765)
 
 
@@ -427,12 +458,10 @@ def main_path_phase():
     if not rel <= 1e-3:
         raise RuntimeError(f"refresh eigenvalues off ARPACK by {rel:.3e} (> 1e-3)")
 
-    # the polish's loss at the pair's pretrained start (far from the target,
-    # where the adam recipe begins) and at the polish's end
-    start = check.init_params(0)
-    step_precision_check(check, mesh, init_mat, eig,
-                         [("the pretrained start", start), ("the polish's end", res["params"])],
-                         gt_audio)
+    # the polish's loss at the pair's pretrained start, far from the target
+    # (where the adam recipe begins): near the fit the polish's L1 gradient
+    # is below f32's rounding of it on any device (its sign flips on the CPU)
+    step_precision_check(check, mesh, init_mat, eig, check.init_params(0), gt_audio)
     cache = check.modal_cache(eig)
     for chamfer in (False, True):
         step_profile(check, cache, res["params"], gt_audio, init_mat, chamfer)
@@ -468,99 +497,84 @@ def polish_loss(model, params, cache, osc, forces, loss_fn, tc, peaks, dtype, ch
     return freqs, sig, loss
 
 
-def step_precision_check(model, mesh, init_mat, eig, points, gt_audio):
+STEP_GATES = dict(freqs=1e-4, loss=3e-5, cos=0.999, step=1e-3, grad=0.5, probe=0.5)
+
+
+def step_precision_check(model, mesh, init_mat, eig, params, gt_audio):
     """One cached polish step on the card in f32 (bmm modal cache,
     synthesis kernel, cuFFT loss, freq-chamfer, autograd, Adam) against the
-    port's f64 on the CPU, at the same params and the same eigenvectors,
-    for each (label, params) of `points`; the port's f32 on the CPU runs
-    beside them as the witness of what f32 alone costs.
+    port's f64 on the CPU, at the same params and the same eigenvectors.
 
     Gates, the card's f32 against the f64: corrected frequencies within
-    1e-4 relative; the loss within 1e-5 relative; each tensor of the loss's
-    gradient at cosine >= 0.999; one Adam step from a fresh state moves
-    every parameter within 1e-3 lr of the f64 step; the relative norm
-    errors of the loss's gradient and of a smooth probe's, <signal,
-    target>, under 0.5, which catches a wrong sign or factor (in f32 they
-    are loose on any device: the gradient sums 8000 samples of oscillating
-    terms that mostly cancel, and the log-spectrogram passes through
-    d log(S)/dS = 1/S for every bin; Adam divides each parameter's step by
-    its own gradient scale, so the step does not see it).  Where the CPU's
-    f32 itself misses a gate, the card is held to twice the CPU f32's
-    reading instead: at the polish's end, a stationary point, the gradient
-    is smaller than f32's rounding of it, so its direction, and the Adam
-    step, are f32 noise on any device, and the L1 part of the loss sits on
-    f32's floor (log2(S + 1e-7) of the quiet bins)."""
+    1e-4 relative; the loss within 3e-5 relative (the frequencies' f32
+    error reaches the loss one to one through the 300 x chamfer term: both
+    read 1.3e-5 to 1.5e-5 at the pretrained start, on the card and in the
+    CPU's f32 alike); each tensor of the loss's gradient at cosine >= 0.999;
+    one Adam step from a fresh state moves every parameter within 1e-3 lr
+    of the f64 step; the relative norm errors of the loss's gradient and of
+    a smooth probe's, <signal, target>, under 0.5, which catches a wrong
+    sign or factor (in f32 they are loose on any device: the gradient sums
+    8000 samples of oscillating terms that mostly cancel, and the
+    log-spectrogram passes through d log(S)/dS = 1/S for every bin; Adam
+    divides each parameter's step by its own gradient scale, so the step
+    does not see it)."""
     import torch
 
     from diffsound_torch.experiments.material_sync import adam_step_decay
     from diffsound_torch.models.sound_obj import EigenState, build_model
 
     lr = 2e-3
-    models = {"card f32": (model, model.device, torch.float32)}
-    for name, dtype in (("cpu f32", torch.float32), ("cpu f64", torch.float64)):
-        models[name] = (build_model(mesh=mesh, mode_num=16, order=2, mat=init_mat,
-                                    task="material", dtype=dtype, device="cpu"),
-                        torch.device("cpu"), dtype)
-    for label, params in points:
-        runs = {}
-        for name, (m, device, dtype) in models.items():
-            e = EigenState(*(t.to(device=device, dtype=dtype) for t in
-                             (eig.eigenvalues, eig.eigenvectors)), eig.iterations,
-                           eig.residual.to(device=device, dtype=dtype))
-            p = {k: v.detach().to(device).clone().requires_grad_(True)
-                 for k, v in params.items()}
-            keys = list(p)
-            osc, forces, loss_fn, tc, peaks = step_inputs(init_mat, gt_audio.to(device), dtype)
-            freqs, sig, loss = polish_loss(m, p, m.modal_cache(e), osc, forces, loss_fn, tc,
-                                           peaks, dtype)
-            probe = (sig * gt_audio.to(device=device, dtype=dtype)).sum()
-            g_probe = torch.autograd.grad(probe, [p[k] for k in keys], retain_graph=True)
-            loss.backward()
-            grads = [p[k].grad.detach().clone() for k in keys]
-            m.bins.mask_grads(p)
-            before = [p[k].detach().clone() for k in keys]
-            opt, _ = adam_step_decay([p[k] for k in keys], lr, 0.95)
-            opt.step()
-            steps = [p[k].detach() - b for k, b in zip(keys, before)]
-            cpu = lambda ts: [t.double().cpu() for t in ts]
-            runs[name] = dict(freqs=freqs.detach().double().cpu(), loss=loss.item(),
-                              probe=cpu(g_probe), grad=cpu(grads), step=cpu(steps))
+    host = build_model(mesh=mesh, mode_num=16, order=2, mat=init_mat, task="material",
+                       dtype=torch.float64, device="cpu")
+    models = {"card f32": (model, model.device, torch.float32),
+              "cpu f64": (host, torch.device("cpu"), torch.float64)}
+    runs = {}
+    for name, (m, device, dtype) in models.items():
+        e = EigenState(*(t.to(device=device, dtype=dtype) for t in
+                         (eig.eigenvalues, eig.eigenvectors)), eig.iterations,
+                       eig.residual.to(device=device, dtype=dtype))
+        p = {k: v.detach().to(device).clone().requires_grad_(True)
+             for k, v in params.items()}
+        keys = list(p)
+        osc, forces, loss_fn, tc, peaks = step_inputs(init_mat, gt_audio.to(device), dtype)
+        freqs, sig, loss = polish_loss(m, p, m.modal_cache(e), osc, forces, loss_fn, tc,
+                                       peaks, dtype)
+        probe = (sig * gt_audio.to(device=device, dtype=dtype)).sum()
+        g_probe = torch.autograd.grad(probe, [p[k] for k in keys], retain_graph=True)
+        loss.backward()
+        grads = [p[k].grad.detach().clone() for k in keys]
+        m.bins.mask_grads(p)
+        before = [p[k].detach().clone() for k in keys]
+        opt, _ = adam_step_decay([p[k] for k in keys], lr, 0.95)
+        opt.step()
+        steps = [p[k].detach() - b for k, b in zip(keys, before)]
+        cpu = lambda ts: [t.double().cpu() for t in ts]
+        runs[name] = dict(freqs=freqs.detach().double().cpu(), loss=loss.item(),
+                          probe=cpu(g_probe), grad=cpu(grads), step=cpu(steps))
 
-        def rel(a, b):
-            return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
+    def rel(a, b):
+        return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
 
-        ref = runs["cpu f64"]
-        errs = {}
-        for name in ("card f32", "cpu f32"):
-            r = runs[name]
-            errs[name] = dict(
-                freqs=float(((r["freqs"] - ref["freqs"]).abs() / ref["freqs"]).max()),
-                loss=abs(r["loss"] / ref["loss"] - 1),
-                probe=rel(r["probe"], ref["probe"]),
-                grad=rel(r["grad"], ref["grad"]),
-                cos=min(float((a * b).sum() / (a.norm() * b.norm()))
-                        for a, b in zip(r["grad"], ref["grad"])),
-                step=max(float((a - b).abs().max())
-                         for a, b in zip(r["step"], ref["step"])) / lr,
-            )
-            x = errs[name]
-            log(f"step precision (polish loss) at {label}, {name} against cpu f64: "
-                f"frequencies {x['freqs']:.3e}, loss {r['loss']:.6f} vs {ref['loss']:.6f} "
-                f"({x['loss']:.3e}), loss gradient {x['grad']:.3e} in relative norm at "
-                f"cosine {x['cos']:.9f}, probe gradient {x['probe']:.3e}, Adam step "
-                f"{x['step']:.3e} lr")
-        card, cpu32 = errs["card f32"], errs["cpu f32"]
-        gates = {name: max(limit, 2 * cpu32[name]) for name, limit in
-                 (("freqs", 1e-4), ("loss", 1e-5), ("step", 1e-3), ("grad", 0.5),
-                  ("probe", 0.5))}
-        gates["cos"] = min(0.999, 1 - 2 * (1 - cpu32["cos"]))
-        log(f"step precision (polish loss) at {label}, the card's gates: "
-            + ", ".join(f"{k} {v:.3e}" for k, v in gates.items()))
-        if not (card["cos"] >= gates["cos"] and all(
-                card[k] <= v for k, v in gates.items() if k != "cos")):
-            raise RuntimeError(f"the f32 cached step on the card at {label} disagrees with "
-                               f"the CPU f64 step beyond its gates (see the docstring of "
-                               f"step_precision_check)")
+    ref, card = runs["cpu f64"], runs["card f32"]
+    x = dict(
+        freqs=float(((card["freqs"] - ref["freqs"]).abs() / ref["freqs"]).max()),
+        loss=abs(card["loss"] / ref["loss"] - 1),
+        probe=rel(card["probe"], ref["probe"]),
+        grad=rel(card["grad"], ref["grad"]),
+        cos=min(float((a * b).sum() / (a.norm() * b.norm()))
+                for a, b in zip(card["grad"], ref["grad"])),
+        step=max(float((a - b).abs().max())
+                 for a, b in zip(card["step"], ref["step"])) / lr,
+    )
+    log(f"step precision (polish loss) at the pretrained start, card f32 against cpu f64: "
+        f"frequencies {x['freqs']:.3e}, loss {card['loss']:.6f} vs {ref['loss']:.6f} "
+        f"({x['loss']:.3e}), loss gradient {x['grad']:.3e} in relative norm at "
+        f"cosine {x['cos']:.9f}, probe gradient {x['probe']:.3e}, Adam step "
+        f"{x['step']:.3e} lr")
+    if not (x["cos"] >= STEP_GATES["cos"] and all(
+            x[k] <= v for k, v in STEP_GATES.items() if k != "cos")):
+        raise RuntimeError("the f32 cached step on the card disagrees with the CPU f64 "
+                           "step beyond its gates (see the docstring of step_precision_check)")
 
 
 def profile_step(label, step, steps: int = 30, profiled: int = 5):
@@ -674,27 +688,40 @@ def geomloss_standin(seed, device, dtype):
     return loss.item(), g.double().cpu()
 
 
-def geomloss_gap(label, card, cpu, witness=None):
-    """The card's f32 geomloss step against the port's f64 on the CPU: the
-    loss's relative gap and the cosine of the frequency gradients, held to
-    the JAX package's own f32 gap; where `witness` (the port's f32 on the
-    CPU at the same step) is given, to twice the witness's gap when that is
-    wider."""
-    def gap_cos(x):
-        return (abs(x[0] / cpu[0] - 1),
-                float((x[1] * cpu[1]).sum() / (x[1].norm() * cpu[1].norm())))
+def lin_clouds(seed, n_fft):
+    """geomloss_standin's prediction and target at `seed` as the geomloss
+    linear-spectrum point clouds at n_fft, made in f64 on the CPU and
+    rounded to f32 once: (x, y), each (1, n_fft // 2 + 1, 4)."""
+    import numpy as np
+    import torch
 
-    gap, cos = gap_cos(card)
-    value_gate, cos_gate = GEOMLOSS_F32_VALUE_GAP, GEOMLOSS_F32_GRAD_COS
-    seen = ""
-    if witness is not None:
-        w_gap, w_cos = gap_cos(witness)
-        value_gate, cos_gate = max(value_gate, 2 * w_gap), min(cos_gate, 1 - 2 * (1 - w_cos))
-        seen = f"; cpu f32 witness gap {w_gap:.3e}, cosine {w_cos:.9f}"
+    from diffsound_torch.audio.mss_loss import spec_to_points
+    from diffsound_torch.audio.oscillator import TraditionalOscillatorParams
+    from diffsound_torch.audio.stft import spectrogram
+    from diffsound_torch.fem.material import Material
+
+    f_tgt = np.sort(np.random.default_rng(seed).uniform(400, 14000, 16))
+    osc = TraditionalOscillatorParams(1, 16, 8000, SR, Material.of(MAT))
+    forces = torch.zeros((1, 150), dtype=torch.float64)
+    forces[0, 0] = 1.0
+    clouds = []
+    for f, moved in ((1.05 * f_tgt, True), (f_tgt, False)):
+        sig, damped = osc(torch.as_tensor(f), forces, dtype=torch.float64)
+        spec = spectrogram(sig / sig.abs().max(), n_fft, n_fft // 4)
+        clouds.append(spec_to_points(spec, damped if moved else None, SR).float())
+    return clouds
+
+
+def geomloss_gap(label, card, cpu, gate):
+    """The card's f32 geomloss step against the port's f64 on the CPU: the
+    loss's relative gap and the frequency gradient's relative error, held
+    to gate = (loss gap, gradient error)."""
+    gap = abs(card[0] / cpu[0] - 1)
+    err = float((card[1] - cpu[1]).norm() / cpu[1].norm())
     log(f"geomloss precision, {label}: card f32 loss {card[0]!r} vs cpu f64 {cpu[0]!r}, "
-        f"relative gap {gap:.3e} (gate {value_gate:.3e}); frequency gradient cosine "
-        f"{cos:.9f} (gate {cos_gate:.9f}){seen}")
-    if not (gap <= value_gate and cos >= cos_gate):
+        f"relative gap {gap:.3e} (gate {gate[0]:.3e}); frequency gradient relative error "
+        f"{err:.3e} (gate {gate[1]:.3e})")
+    if not (gap <= gate[0] and err <= gate[1]):
         raise RuntimeError(f"geomloss precision, {label}: the card's f32 step is further "
                            f"from f64 than its gate")
 
@@ -705,8 +732,8 @@ def reference_phase():
     three refreshes, then 15 L1 epochs) and the default epoch recipe (15
     freq-chamfer epochs, then 15 of L1 + 300 x chamfer).  Then the geomloss
     step on the card in f32 against the port's f64 on the CPU, at the
-    reference run's params and eigenvectors and at the CPU test's three
-    seeded steps, and a profile of the geomloss step."""
+    reference run's params and eigenvectors and at the ten seeded steps of
+    tests/test_torch_geomloss_f32.py, and a profile of the geomloss step."""
     import numpy as np
     import torch
 
@@ -768,10 +795,6 @@ def reference_phase():
     peak = torch.cuda.max_memory_allocated() - base
     cpu = geomloss_step(host, res["eig"], res["params"], gt_audio.cpu(), init_mat,
                         torch.device("cpu"), torch.float64)
-    host32 = build_model(mesh=mesh, mode_num=16, order=2, mat=init_mat, task="material",
-                         dtype=torch.float32, device="cpu")
-    witness = geomloss_step(host32, res["eig"], res["params"], gt_audio.cpu(), init_mat,
-                            torch.device("cpu"), torch.float32)
     log(f"geomloss step on the card: peak memory {peak / 2**30:.3f} GiB above "
         f"{base / 2**30:.3f} GiB already allocated")
     cos_p = min(float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(card[2], cpu[2]))
@@ -779,10 +802,26 @@ def reference_phase():
         freqs = model.get_undamped_freqs_cached(res["params"], model.modal_cache(res["eig"]))
     log(f"geomloss precision, reference run's params: parameter gradient cosine {cos_p:.9f}; "
         f"the step's undamped frequencies {fmt(freqs.tolist(), 3)} Hz")
-    geomloss_gap("reference run's params and eigenvectors", card, cpu, witness)
+    # The linear-spectrum Sinkhorn divergence alone, in f32 on the card
+    # against f64 on the same f32 points: the f32 arithmetic of the loss
+    # without the signal's rounding, which dominates the whole step's gap
+    from diffsound_torch.audio.sinkhorn import sinkhorn_divergence
+
+    for n_fft in (2048, 1024):
+        x, y = lin_clouds(GEOMLOSS_SEEDS[0], n_fft)
+        v32 = sinkhorn_divergence(x.to(model.device), y.to(model.device)).item()
+        v64 = sinkhorn_divergence(x.double(), y.double()).item()
+        gap = abs(v32 / v64 - 1)
+        log(f"Sinkhorn divergence alone at n_fft {n_fft}, seed {GEOMLOSS_SEEDS[0]}: card f32 "
+            f"{v32!r} vs cpu f64 {v64!r}, relative gap {gap:.3e} (gate {SINKHORN_F32_GAP:.0e})")
+        if not gap <= SINKHORN_F32_GAP:
+            raise RuntimeError(f"Sinkhorn divergence at n_fft {n_fft}: the card's f32 is "
+                               f"{gap:.3e} from f64")
+    geomloss_gap("reference run's params and eigenvectors", card, cpu, geomloss_gate())
     for seed in GEOMLOSS_SEEDS:
         geomloss_gap(f"seeded step {seed}", geomloss_standin(seed, model.device, torch.float32),
-                     geomloss_standin(seed, torch.device("cpu"), torch.float64))
+                     geomloss_standin(seed, torch.device("cpu"), torch.float64),
+                     geomloss_gate(seed))
 
     from diffsound_torch.audio.mss_loss import MSSLoss
     from diffsound_torch.audio.oscillator import TraditionalOscillatorParams

@@ -135,7 +135,7 @@ class SSSLoss:
         if self.loss_type == "rmse_loss":
             return (self.log_spec(x_true, scale),)
         if self.loss_type == "geomloss":
-            x_t = _peak_normalize(x_true.to(torch.float64))
+            x_t = _peak_normalize(x_true)
             return (
                 spec_to_points(self.log_spec(x_t, scale) / 40.0),
                 spec_to_points(spectrogram(x_t, self.n_fft, self.hop)),
@@ -165,13 +165,7 @@ class SSSLoss:
                 target_cache if target_cache is not None
                 else self.target_cache(x_true, scale)
             )
-            # From the synthesized signal on, the loss runs in float64: the
-            # JAX package's log branch is float64 (see log_func), and in
-            # float32 the linear branch's costs (up to 1e10, over eps = 1e-4)
-            # and its spectrogram put the loss and its gradient further from
-            # float64 than the JAX package's own float32 step (chip_smoke.py
-            # holds the card to that gap)
-            x_p = _peak_normalize(x_pred.to(torch.float64))
+            x_p = _peak_normalize(x_pred)
             lin_p = spectrogram(x_p, self.n_fft, self.hop)
             log_p = self.log_spec(x_p, scale) / 40.0
             loss_log = sinkhorn_divergence(

@@ -113,7 +113,6 @@ class MaterialSyncTask:
     exp_mode: int = 3
     dtype: Optional[torch.dtype] = None
     device: object = "cuda"
-    solver: str = "auto"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -161,7 +160,7 @@ class MaterialSyncTask:
         """Ground-truth audio (1, frame_num) from an order-2 fixed-material
         model, and its undamped frequencies (numpy)."""
         gt_model = self._build(gt_mat, 2, "gt")
-        eig = gt_model.eigen_decomposition(method=self.solver)
+        eig = gt_model.eigen_decomposition()
         with torch.no_grad():
             freqs = gt_model.get_undamped_freqs({}, eig)
             gt_osc = TraditionalOscillatorParams(
@@ -321,10 +320,10 @@ class MaterialSyncTask:
             if epoch % EIGEN_DECOMPOSE_CYCLE == 0 or eig is None:
                 t0 = time.perf_counter()
                 warm = eig is not None
-                if warm and self.solver != "arpack":
+                if warm:
                     eig, cache = model.refresh(params, eig)
                 else:
-                    eig = model.eigen_decomposition(params, prev=eig, method=self.solver)
+                    eig = model.eigen_decomposition(params)
                     cache = model.modal_cache(eig)
                 _sync(dev)
                 if warm:
@@ -430,8 +429,7 @@ class MaterialSyncTask:
         no early phase, for polish_epochs.
 
         extraction_windows: peak-extraction scheme candidates, each a
-        (window, n_fft) pair (n_fft None: one whole-signal window; a bare
-        int means Blackman-Harris at that n_fft).  Every scheme's peak set
+        (window, n_fft) pair (n_fft None: one whole-signal window).  Every scheme's peak set
         is fit on its own, the eigenstate carried from one scheme's fit to
         the next as a warm start, and the union-coverage score
         (audio.freq_loss.peak_coverage_score against the merged peak set of
@@ -447,10 +445,7 @@ class MaterialSyncTask:
         model = self._build(init_mat, self.mesh_order, self.task)
         mu0, lam0 = lame_params(init_mat[1] / init_mat[0], init_mat[2])
 
-        schemes = [
-            ("blackmanharris", w) if not isinstance(w, (tuple, list)) else tuple(w)
-            for w in extraction_windows
-        ]
+        schemes = [tuple(w) for w in extraction_windows]
         audio = gt_audio.cpu().numpy()
         peak_sets = [
             extract_spectral_peaks(audio, self.sample_rate, n_fft=nfft, window=win)

@@ -186,39 +186,13 @@ class DiffSoundObject:
             torch.zeros(k, dtype=self.dtype, device=self.device),
         )
 
-    def eigen_decomposition(
-        self,
-        params=None,
-        prev: Optional[EigenState] = None,
-        method: str = "auto",
-        generator: Optional[torch.Generator] = None,
-        sigma: float = 20000.0,
-    ) -> EigenState:
+    def eigen_decomposition(self, params=None, sigma: float = 20000.0) -> EigenState:
         """Solve the generalized pencil for the mode_num + extra_modes
-        smallest eigenpairs.
-
-        method "auto" (default): host ARPACK shift-invert when cold (LOBPCG
-        with Jacobi preconditioning converges too slowly from random
-        vectors), LOBPCG on the device warm-started from `prev` when given.
-        "arpack" and "lobpcg" force one solver; a cold LOBPCG starts from
-        random vectors drawn from `generator` (default: seed 0 on the
-        model's device)."""
+        smallest eigenpairs, cold: host ARPACK shift-invert (LOBPCG with
+        Jacobi preconditioning converges too slowly from random vectors).
+        Warm solves go through `refresh` and `eigen_decomposition_at_lame`."""
         mu, lam = self.material_lame_floats(params)
-        if method == "auto":
-            method = "lobpcg" if prev is not None else "arpack"
-        if method == "arpack":
-            return self._arpack_solve(mu, lam, sigma)
-        if method != "lobpcg":
-            raise ValueError(f"unknown eigensolver method {method!r}")
-        if prev is not None:
-            x0 = prev.eigenvectors
-        else:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            k = self.mode_num + self.extra_modes
-            x0 = torch.randn((self.num_dof, k), generator=generator, dtype=self.dtype,
-                             device=self.device)
-        return self._lobpcg_solve(mu, lam, x0)
+        return self._arpack_solve(mu, lam, sigma)
 
     def eigen_decomposition_at_lame(
         self, mu: float, lam: float, prev: Optional[EigenState] = None,

@@ -127,14 +127,13 @@ def test_newton_fit_matches_jax_and_recovers_material(small_cube):
 
 
 def test_eigensolve_options_match_jax():
-    """eigen_decomposition's prev/method/generator and
-    eigen_decomposition_at_lame's warm branch, against the JAX package and
-    host ARPACK."""
+    """The cold eigen_decomposition and eigen_decomposition_at_lame's warm
+    branch, against the JAX package and host ARPACK."""
     mesh, mat = cube_tet_mesh(2, 0.5), (2700, 7.2e10, 0.19, 6, 1e-7)
     jm = jbuild(mesh=mesh, mode_num=6, order=1, mat=mat, task="material", dtype=jnp.float64)
     tm = build_model(mesh=mesh, mode_num=6, order=1, mat=mat, task="material", device="cpu")
     cold_j = jm.eigen_decomposition(method="arpack")
-    cold_t = tm.eigen_decomposition()  # auto, no prev: ARPACK
+    cold_t = tm.eigen_decomposition()
     np.testing.assert_allclose(cold_t.eigenvalues[6:].numpy(),
                                np.asarray(cold_j.eigenvalues)[6:], rtol=1e-10)
     # warm from the same eigenvectors at a 5%-moved material
@@ -148,16 +147,3 @@ def test_eigensolve_options_match_jax():
                                np.asarray(warm_j.eigenvalues)[6:], rtol=1e-10)
     np.testing.assert_allclose(warm_t.eigenvalues[6:].numpy(),
                                1.05 * cold_t.eigenvalues[6:].numpy(), rtol=1e-10)
-    # auto with prev is the warm LOBPCG; a cold LOBPCG draws from the
-    # generator it is given and leaves the global RNG alone
-    auto_warm = tm.eigen_decomposition(prev=cold_t)
-    assert auto_warm.iterations > 0
-    state = torch.get_rng_state()
-    runs = [tm.eigen_decomposition(method="lobpcg", generator=torch.Generator().manual_seed(3))
-            for _ in range(2)]
-    assert torch.equal(torch.get_rng_state(), state)
-    assert torch.equal(runs[0].eigenvalues, runs[1].eigenvalues)
-    np.testing.assert_allclose(runs[0].eigenvalues[6:].numpy(),
-                               cold_t.eigenvalues[6:].numpy(), rtol=1e-8)
-    with pytest.raises(ValueError, match="method"):
-        tm.eigen_decomposition(method="eigh")

@@ -170,6 +170,28 @@ def test_logsumexp_gradient_holds_at_sinkhorn_magnitudes_in_float32():
     assert float((g_torch.double() - want).abs().max()) > 0.1  # why _logsumexp exists
 
 
+@pytest.mark.parametrize("n_fft", [2048, 1024])
+def test_sinkhorn_float32_gap_on_linear_spectrum_points(n_fft):
+    """The geomloss linear-spectrum clouds of seed 11 (features up to 4e2,
+    squared diameter 2e5), rounded to float32 once (chip_smoke.lin_clouds),
+    then the divergence in float32 against float64 on those same inputs:
+    the gate chip_smoke.py holds the card to.  Reduced over the strided
+    transpose of the cost, the self problems' g drifted an ulp from f at
+    the large epsilons and kept it (gap 2.3e-4 at n_fft 1024); over a
+    contiguous copy, f and g stay equal as in the JAX package.  Readings:
+    the port 4.0e-6 / 3.0e-6 at n_fft 2048 / 1024, the JAX package
+    (jitted) 2.0e-7 / 3.5e-8."""
+    import chip_smoke
+
+    x, y = chip_smoke.lin_clouds(11, n_fft)
+    v32 = tsk.sinkhorn_divergence(x, y).item()
+    v64 = tsk.sinkhorn_divergence(x.double(), y.double()).item()
+    j32 = float(jax.jit(jsk.sinkhorn_divergence)(jnp.asarray(x[0].numpy()), jnp.asarray(y[0].numpy())))
+    print(f"float32 Sinkhorn divergence gap at n_fft {n_fft}: port {abs(v32 / v64 - 1):.3e}, "
+          f"JAX {abs(j32 / v64 - 1):.3e}")
+    assert abs(v32 / v64 - 1) <= chip_smoke.SINKHORN_F32_GAP
+
+
 def test_geomloss_log_points_are_float64_like_jax():
     """The JAX package's log spectrum subtracts a numpy float64 constant,
     which promotes it to float64 under x64; the port's log points follow,
