@@ -14,8 +14,9 @@ fails the run by raising:
 2. Kernel phase: the oscillator-synthesis kernels, forward and backward,
    against their plain PyTorch versions on the card (the backward against
    the plain one in float64), at the flagship shape (1, 16, 8000), the
-   material_real ground-truth bank (8, 256, 8000) and a ragged T
-   (3, 40, 1000), with CUDA-event times of each kernel, of its plain
+   material_real ground-truth bank (8, 256, 8000) with the trainer's tables
+   and with the GT bank's own (damping to 5e4 1/s, over-damped modes), and
+   a ragged T (3, 40, 1000), with CUDA-event times of each kernel, of its plain
    version, and of SynthFn's forward and backward against autograd of the
    plain version.
 3. Main path at full width: material_sync's `newton` recipe
@@ -43,6 +44,18 @@ fails the run by raising:
 5. CLI phase: `python -m diffsound_torch.experiments.material_sync`'s
    `main` on a small cube mesh written to a .msh file, for each recipe
    (`newton`, `adam`, `reference`).
+6. material_real at full audio width on synthetic 8-mic recordings of
+   `cube_tet_mesh(9, 0.3)` at order 2 (REAL_GT_FREQS damped by the curve of
+   results/r2/material_real_stage1_fit.npz): stage 1 (`fit_gt_oscillator`,
+   a 256-mode GT bank, 2001 steps; gates: finite losses ending below the
+   JAX package's after 300 steps, 2001 launches of each kernel), its
+   step's profile and one step in f32 against the CPU's f64; stage 2
+   (`train_material_real` from the r2 curve: the modal-Newton start held
+   to the JAX package's, 45 geomloss and 30 L1 epochs whose losses must
+   fall), the geomloss and L1 steps' profiles at 8 mics and the geomloss
+   step's peak memory; the chained run (stage 1's own curve into stage 2,
+   finite values); the material_real CLI, fresh and from its stage-1
+   cache.
 
 The line before the last is one JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -169,6 +182,29 @@ def synth_modes(A, M, device, seed):
     return tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (f, d, a))
 
 
+def gt_bank_modes(A, M, device, seed):
+    """Mode tables as the material_real GT bank makes them, drawn over the
+    bank's full range: linear frequencies in [20, 16000] Hz, alpha and beta
+    log-uniform over the bank's bins (0.1x to 100x Ceramic's 6 and 1e-7),
+    damping (alpha + beta (2 pi f)^2) / 2 up to about 5e4 1/s, the damped
+    frequency clamped as `damped_frequency` clamps it where the damping
+    exceeds 2 pi f (the first mode of every row: 20 Hz at alpha 600),
+    amplitudes as modified_sigmoid makes them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(20.0, 16000.0, (A, M))
+    alpha = np.exp(rng.uniform(np.log(0.6), np.log(600.0), (A, M)))
+    beta = np.exp(rng.uniform(np.log(1e-8), np.log(1e-5), (A, M)))
+    f[:, 0], alpha[:, 0] = 20.0, 600.0
+    lbd = (2 * np.pi * f) ** 2
+    d = 0.5 * (alpha + beta * lbd)
+    fd = np.sqrt(np.maximum(lbd - d**2, 1e-12)) / (2 * np.pi)
+    a = 2.0 / (1.0 + np.exp(-rng.uniform(0.0, 0.04, (A, M)))) ** 2.3 + 1e-6
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=device) for x in (fd, d, a))
+
+
 def fmt(xs, digits: int = 5):
     return " ".join(f"{x:.{digits}f}" for x in xs)
 
@@ -185,8 +221,14 @@ def kernel_phase(device):
     )
 
     flagship = None
-    for A, M, T in ((1, 16, 8000), (8, 256, 8000), (3, 40, 1000)):
-        f, d, a = synth_modes(A, M, device, seed=A * 1000 + M)
+    for A, M, T, tables in ((1, 16, 8000, synth_modes), (8, 256, 8000, synth_modes),
+                            (3, 40, 1000, synth_modes), (8, 256, 8000, gt_bank_modes)):
+        f, d, a = tables(A, M, device, seed=A * 1000 + M)
+        shape = f"({A},{M},{T}){' GT bank tables' if tables is gt_bank_modes else ''}"
+        if tables is gt_bank_modes:
+            log(f"kernel synth {shape}: damping {float(d.min()):.3g} to "
+                f"{float(d.max()):.4g} 1/s, {int((f < 1e-3).sum())} modes over-damped (damped "
+                f"frequency clamped)")
         with torch.no_grad():
             out = synth_kernel.synth_kernel(f, d, a, T, SR)
             ref = synth_constant_modes_plain(f, d, a, T, SR)
@@ -196,10 +238,10 @@ def kernel_phase(device):
         bound = 1e-5 * a.abs().sum(dim=1, keepdim=True)
         fwd_err = float(err.max())
         if out.shape != (A, T) or not bool(torch.isfinite(out).all()):
-            raise RuntimeError(f"synth kernel ({A},{M},{T}): bad output {tuple(out.shape)}")
+            raise RuntimeError(f"synth kernel {shape}: bad output {tuple(out.shape)}")
         if not bool((err <= bound).all()):
             raise RuntimeError(
-                f"synth kernel ({A},{M},{T}): max |kernel - plain| {fwd_err:.3e} "
+                f"synth kernel {shape}: max |kernel - plain| {fwd_err:.3e} "
                 f"exceeds 1e-5 * sum|amp| = {float(bound.min()):.3e}"
             )
 
@@ -220,12 +262,12 @@ def kernel_phase(device):
         plain_rel = [rel(x, y) for x, y in zip(g_32, g_64)]
         bwd_abs = max(float((x.double() - y).abs().max()) for x, y in zip(g_k, g_64))
         if not (all(bool(torch.isfinite(x).all()) for x in g_k) and max(bwd_rel) <= 1e-4):
-            raise RuntimeError(f"synth backward kernel ({A},{M},{T}): relative errors "
+            raise RuntimeError(f"synth backward kernel {shape}: relative errors "
                                f"{bwd_rel} (f, d, amp) against the f64 plain version")
         ins = [x.clone().requires_grad_(True) for x in (f, d, a)]
         g_fn = torch.autograd.grad((SynthFn.apply(*ins, T, SR) * w).sum(), ins)
         if not all(torch.equal(x, y) for x, y in zip(g_fn, g_k)):
-            raise RuntimeError(f"SynthFn ({A},{M},{T}): backward differs from the kernel's")
+            raise RuntimeError(f"SynthFn {shape}: backward differs from the kernel's")
 
         def synthfn_step():
             return torch.autograd.grad(SynthFn.apply(*ins, T, SR), ins, w)
@@ -249,21 +291,21 @@ def kernel_phase(device):
         auto = timed(plain_step, max(1, 400 // n_auto))
         fwd_bound, fwd_by = synth_bound(A, M, T)
         bwd_bound, bwd_by = synth_bound(A, M, T, backward=True)
-        log(f"kernel synth ({A},{M},{T}): max|kernel-plain| {fwd_err:.3e} "
+        log(f"kernel synth {shape}: max|kernel-plain| {fwd_err:.3e} "
             f"(bound {float(bound.min()):.3e})")
-        log(f"kernel synth ({A},{M},{T}): device ms per call, kernel {fmt(fwd['all'])}, "
+        log(f"kernel synth {shape}: device ms per call, kernel {fmt(fwd['all'])}, "
             f"plain {fmt(fwd_plain['all'])} (three rounds; the plain version launches "
             f"{n_plain} kernels a call); host ms per call, kernel wrapper "
             f"{fwd['host_ms']:.5f}, plain {fwd_plain['host_ms']:.5f}; "
             f"bound {fwd_bound:.7f} ms ({fwd_by})")
-        log(f"kernel synth_bwd ({A},{M},{T}): relative error (f, d, amp) against f64 "
+        log(f"kernel synth_bwd {shape}: relative error (f, d, amp) against f64 "
             f"{' '.join(f'{x:.3e}' for x in bwd_rel)}, max abs {bwd_abs:.3e}; plain f32 "
             f"{' '.join(f'{x:.3e}' for x in plain_rel)}")
-        log(f"kernel synth_bwd ({A},{M},{T}): device ms per call, kernel {fmt(bwd['all'])}, "
+        log(f"kernel synth_bwd {shape}: device ms per call, kernel {fmt(bwd['all'])}, "
             f"plain {fmt(bwd_plain['all'])} (the plain backward launches {n_plain_bwd} "
             f"kernels a call); host ms per call, kernel wrapper {bwd['host_ms']:.5f}, "
             f"plain {bwd_plain['host_ms']:.5f}; bound {bwd_bound:.7f} ms ({bwd_by})")
-        log(f"SynthFn forward+backward ({A},{M},{T}): device ms per call {fmt(fn['all'])}, "
+        log(f"SynthFn forward+backward {shape}: device ms per call {fmt(fn['all'])}, "
             f"host {fn['host_ms']:.5f}, {n_fn} launches a call; autograd of the plain "
             f"version {fmt(auto['all'])}, host {auto['host_ms']:.5f}, {n_auto} launches")
         if flagship is None:
@@ -328,6 +370,62 @@ SINKHORN_F32_GAP = 3e-5
 # and the two fixed points lie 20% apart in E and 0.29 in nu, ten times
 # the gate, so the gate tells them apart at either mesh.
 JAX_NEWTON_PAIR0 = (13706449104.670244, 0.03435030386545765)
+
+# material_real: the synthetic recordings' material, and the in-repo
+# stage-1 fit of the real bowl whose damping curve damps their modes
+REAL_TARGET = (2700, 5.6e10, 0.27, 6, 1e-7)
+# The 16 undamped frequencies (Hz) of cube_tet_mesh(9, 0.3) at order 2 in
+# REAL_TARGET: the JAX package's ground truth (host ARPACK in float64,
+# scripts/jax_material_real_reference.py); the port's own solve reads the
+# same to 0.1 Hz, and taking them as data saves a 17-22 s cold solve here.
+REAL_GT_FREQS = (
+    4330.943467022888,
+    4330.943467022887,
+    5818.931343973218,
+    5819.75220768842,
+    5819.752207688422,
+    5926.79152784894,
+    5926.79152784894,
+    5926.793560499215,
+    6736.02505627767,
+    6736.025056277672,
+    6738.996777140218,
+    6813.7163092677265,
+    6813.716309267726,
+    6815.146044813604,
+    7208.170762048115,
+    7208.170762048116,
+)
+R2_STAGE1_FIT = os.path.join("results", "r2", "material_real_stage1_fit.npz")
+
+
+def r2_curve_data():
+    """The (freqs, damps) of the bowl's stage-1 fit, 256 pairs, float64."""
+    import numpy as np
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), R2_STAGE1_FIT))
+    return d["freqs"].astype(np.float64), d["damps"].astype(np.float64)
+
+
+def synthetic_recordings(f_und, damps, mics: int = 8, T: int = 8000, seed: int = 0,
+                         noise_db: float = -40.0):
+    """Recordings of modes at undamped frequencies f_und (M,) with damping
+    damps (M,), in numpy float64: per-mic amplitudes U[0.2, 1), the closed
+    form sum_m amp e^{-d (n+1)/sr} sin(2 pi fd (n+1)/sr) at the damped
+    frequency fd, white noise noise_db below each mic's RMS (a 40 dB
+    signal-to-noise ratio by default), then each mic divided by its max |x|
+    as the recordings' loader does."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f_und, damps = np.asarray(f_und, np.float64), np.asarray(damps, np.float64)
+    amps = rng.uniform(0.2, 1.0, (mics, len(f_und)))
+    fd = np.sqrt(np.maximum((2 * np.pi * f_und) ** 2 - damps**2, 0.0)) / (2 * np.pi)
+    t = (np.arange(T) + 1.0) / SR
+    x = amps @ (np.exp(-damps[:, None] * t) * np.sin(2 * np.pi * fd[:, None] * t))
+    rms = np.sqrt((x**2).mean(axis=1, keepdims=True))
+    x = x + 10.0 ** (noise_db / 20.0) * rms * rng.standard_normal((mics, T))
+    return x / (np.abs(x).max(axis=1, keepdims=True) + 1e-12)
 
 
 def zero_counts():
@@ -577,10 +675,11 @@ def step_precision_check(model, mesh, init_mat, eig, params, gt_audio):
                            "step beyond its gates (see the docstring of step_precision_check)")
 
 
-def profile_step(label, step, steps: int = 30, profiled: int = 5):
+def profile_step(label, step, steps: int = 30, profiled: int = 5, kernels=()):
     """Where a step's time goes: the host's wall time per step, and from
     torch.profiler the kernels launched per step and the device time they
-    take.  Returns (host ms, device ms, cudaLaunchKernel calls) per step."""
+    take, with the device ms of each kernel named in `kernels`.  Returns
+    (host ms, device ms, cudaLaunchKernel calls) per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -601,12 +700,17 @@ def profile_step(label, step, steps: int = 30, profiled: int = 5):
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device_work) / profiled
     launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel") / profiled
-    kernels = sum(1 for e in device_work
-                  if not e.name.startswith(("Memcpy", "Memset"))) / profiled
+    kernels_n = sum(1 for e in device_work
+                    if not e.name.startswith(("Memcpy", "Memset"))) / profiled
     log(f"{label}: host {host_ms:.3f} ms per step, device work {device_ms:.3f} ms "
         f"(idle share {1 - device_ms / host_ms:.3f}), {launches:.0f} cudaLaunchKernel "
-        f"calls, {kernels:.0f} kernels and {len(device_work) / profiled:.0f} device "
+        f"calls, {kernels_n:.0f} kernels and {len(device_work) / profiled:.0f} device "
         f"activities per step")
+    for name in kernels:
+        ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device_work if name in e.name)
+        n = sum(1 for e in device_work if name in e.name)
+        log(f"{label}: {name} {ms / profiled:.5f} ms per step in {n / profiled:.0f} "
+            f"launches, {ms / profiled / device_ms:.4f} of the device work")
     if not 0 < device_ms < host_ms:
         raise RuntimeError(f"{label}: device work {device_ms:.3f} ms per step "
                            f"against {host_ms:.3f} ms of host time")
@@ -848,6 +952,324 @@ def reference_phase():
         raise RuntimeError("geomloss step: non-finite loss on the card")
 
 
+# material_real: stage 1's Adam steps (the config's 2001), stage 2's
+# epochs (the config's 1000 geomloss + 2000 L1 cut to three refreshes of
+# geomloss and two of L1), the chained run's, and the CLI's stage-1 steps
+REAL_STAGE1_ITERS = 2001
+REAL_STAGE2_EPOCHS = (45, 30)
+REAL_CHAINED_EPOCHS = (15, 15)
+REAL_CLI = dict(gt_iters=100, max_epoch=20, early_loss_epoch=10)
+# The JAX package on the same recordings (`python -m
+# scripts.jax_material_real_reference --iters 300`, CPU): stage 2's
+# modal-Newton start from MatSet.Ceramic with the r2 curve on
+# cube_tet_mesh(9, 0.3) at order 2 (float64), and stage 1's loss (float32,
+# its own seeded draw and noise) at its start and after 300 steps.
+JAX_REAL_NEWTON = (55383857046.05093, 0.253859619848809)
+JAX_STAGE1_FALL = (300, 40.35353469848633, 25.616779327392578)
+# One stage-1 step in f32 on the card against the port's f64 on the CPU at
+# the same params and noise: the loss's relative gap and each gradient's
+# cosine (the port's f32 on the CPU reads 2.0e-6 and 0.9999976 at this step).
+STAGE1_GATES = dict(loss=2e-5, cos=0.9999)
+
+
+def real_recordings():
+    """The material_real phase's 8-mic recordings (8, 8000), float64 numpy,
+    of REAL_GT_FREQS damped by the r2 curve, and the curve."""
+    import numpy as np
+
+    from diffsound_torch.audio.damping import DampingCurve
+
+    curve = DampingCurve(*r2_curve_data())
+    f_und = np.asarray(REAL_GT_FREQS)
+    log(f"material_real: recordings of {fmt(f_und, 1)} Hz, curve damping "
+        f"{fmt(curve(f_und), 2)} 1/s")
+    return synthetic_recordings(f_und, curve(f_und)), curve
+
+
+def stage1_step(audio, params, noise, device, dtype):
+    """One stage-1 loss and its gradients (GT bank, 256 modes, filtered
+    noise at 2e-4, 5-scale L1) at `params` with the white noise `noise`."""
+    import torch
+
+    from diffsound_torch.audio.mss_loss import MSSLoss
+    from diffsound_torch.audio.oscillator import GTOscillatorBank
+    from diffsound_torch.experiments.material_sync import impulse_forces
+    from diffsound_torch.fem.material import Material, MatSet
+
+    bank = GTOscillatorBank(8, 256, 8000, SR, Material.of(MatSet.Ceramic))
+    p = {k: v.to(device=device, dtype=dtype).requires_grad_(True) for k, v in params.items()}
+    loss_fn = MSSLoss([512, 256, 128, 64, 32], SR, loss_type="l1_loss")
+    sig, _ = bank(p, impulse_forces(8, 150, dtype, device), noise_rate=2e-4,
+                  noise=noise.to(device=device, dtype=dtype))
+    loss = loss_fn(sig, torch.as_tensor(audio, dtype=dtype, device=device))
+    loss.backward()
+    return loss.item(), {k: v.grad.double().cpu() for k, v in p.items()}
+
+
+def stage1_precision_check(audio, device):
+    """Stage 1's step in f32 on `device` against the port's f64 on the CPU,
+    at the seeded start and one draw of noise."""
+    import torch
+
+    from diffsound_torch.audio.filtered_noise import FilteredNoise
+    from diffsound_torch.audio.oscillator import GTOscillatorBank
+    from diffsound_torch.fem.material import Material, MatSet
+
+    gen = torch.Generator().manual_seed(0)
+    params = GTOscillatorBank(8, 256, 8000, SR, Material.of(MatSet.Ceramic)).init_params(
+        gen, torch.float64)
+    noise = FilteredNoise(8, 8000).white_noise(gen, torch.float64)
+    l32, g32 = stage1_step(audio, params, noise, device, torch.float32)
+    l64, g64 = stage1_step(audio, params, noise, torch.device("cpu"), torch.float64)
+    gap = abs(l32 / l64 - 1)
+    cos = {k: float((g32[k] * g64[k]).sum() / (g32[k].norm() * g64[k].norm())) for k in g64}
+    rel = {k: float((g32[k] - g64[k]).norm() / g64[k].norm()) for k in g64}
+    log(f"stage-1 precision on {device} f32 against cpu f64: loss {l32!r} vs {l64!r}, "
+        f"relative gap {gap:.3e} (gate {STAGE1_GATES['loss']:.0e}); gradient cosine "
+        + ", ".join(f"{k} {cos[k]:.9f}" for k in cos) + "; relative norm error "
+        + ", ".join(f"{k} {rel[k]:.3e}" for k in rel))
+    return gap, cos
+
+
+def check_stage2(label, res, epochs, newton_gate=True):
+    """Stage 2's run: finite losses falling in each phase, a finite Newton
+    start (held to the JAX package's when newton_gate), the timing logged."""
+    import numpy as np
+
+    early, late = epochs
+    fit = res["newton"]
+    warm = [s for s in fit["solves"] if s["warm"]]
+    cold = [s for s in fit["solves"] if not s["warm"]]
+    log(f"{label}: pretrain_damps {res['pretrain_damps_s']:.3f} s; Newton start "
+        f"{res['newton_s']:.3f} s ({len(cold)} cold solve {fmt(s['seconds'] for s in cold)} "
+        f"s, {len(warm)} warm solves, mean {1e3 * np.mean([s['seconds'] for s in warm]):.2f} "
+        f"ms, LOBPCG iterations {[s['iterations'] for s in warm]}): E {fit['E']:.6g} nu "
+        f"{fit['nu']:.5f} (target {REAL_TARGET[1]:.6g}, {REAL_TARGET[2]:.5f})")
+    log(f"{label}: epoch-0 cold solve {fmt(res['cold_s'], 3)} s, {len(res['refresh_s'])} "
+        f"refreshes {fmt(res['refresh_s'], 3)} s (LOBPCG iterations {res['refresh_iters']}); "
+        f"{early} geomloss steps {res['step_s']['early']:.3f} s "
+        f"({1e3 * res['step_s']['early'] / early:.1f} ms each), {late} L1 steps "
+        f"{res['step_s']['late']:.3f} s; loss {res['losses'][0]:.6g} -> "
+        f"{res['losses'][early - 1]:.6g} | {res['losses'][early]:.6g} -> "
+        f"{res['losses'][-1]:.6g}; E {res['youngs']:.6g} nu {res['poisson']:.5f}; wall "
+        f"{res['wall_s']:.3f} s")
+    if not all(np.isfinite([fit["E"], fit["nu"], res["youngs"], res["poisson"]])):
+        raise RuntimeError(f"{label}: non-finite E or nu")
+    if newton_gate:
+        check_fit(label, fit, JAX_REAL_NEWTON)
+    check_losses(f"{label} geomloss phase", res["losses"][:early], early)
+    check_losses(f"{label} L1 phase", res["losses"][early:], late)
+
+
+def check_fit(label, fit, ref):
+    """A Newton fit within 2% in E and 0.03 in nu of the JAX package's."""
+    e_err, nu_err = abs(fit["E"] / ref[0] - 1), abs(fit["nu"] - ref[1])
+    log(f"{label}: Newton start against the JAX package's (E {ref[0]:.6g}, nu {ref[1]:.5f}): "
+        f"E off by {e_err:.3e} relative, nu by {nu_err:.3e}")
+    if not (e_err <= 0.02 and nu_err <= 0.03):
+        raise RuntimeError(f"{label}: the Newton start disagrees with the JAX package's: E by "
+                           f"{e_err:.3e} (gate 0.02), nu by {nu_err:.3e} (gate 0.03)")
+
+
+def material_real_phase():
+    """The material_real task on the card: stage 1 at full width (8 mics,
+    256 modes, 8000 samples, 2001 steps) on synthetic recordings of
+    cube_tet_mesh(9, 0.3) at order 2; one stage-1 step in f32 against the
+    CPU's f64; stage 2 from the r2 curve (Newton start, 45 geomloss and 30
+    L1 epochs) against the JAX package's Newton start, with the geomloss
+    and L1 steps' profiles and the geomloss step's peak memory; the chained
+    run (stage 1's curve into stage 2); the CLI, fresh and from its cache.
+    Returns the kernels' launch counts of stage 1 and stage 2."""
+    import numpy as np
+    import torch
+
+    from diffsound_torch.audio.mss_loss import MSSLoss
+    from diffsound_torch.audio.oscillator import OscillatorBank
+    from diffsound_torch.experiments import material_real
+    from diffsound_torch.experiments.material_sync import impulse_forces
+    from diffsound_torch.fem.material import Material, MatSet
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+    from diffsound_torch.models.sound_obj import build_model
+
+    mesh = cube_tet_mesh(9, 0.3)
+    audio, curve = real_recordings()
+    forces = impulse_forces(8, 150)
+
+    # stage 1 at full width
+    zero_counts()
+    t0 = time.perf_counter()
+    bank, params, losses = material_real.fit_gt_oscillator(
+        audio.astype(np.float32), forces, 256, SR, MatSet.Ceramic, iters=REAL_STAGE1_ITERS,
+        verbose=False)
+    torch.cuda.synchronize()
+    stage1_s = time.perf_counter() - t0
+    counts = {"stage 1": read_counts()}
+    n_iters, jax_start, jax_end = JAX_STAGE1_FALL
+    log(f"stage 1: {REAL_STAGE1_ITERS} steps in {stage1_s:.3f} s "
+        f"({1e3 * stage1_s / REAL_STAGE1_ITERS:.3f} ms a step); loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g} (min {losses.min():.6g}); the JAX package's {jax_start:.6g} -> "
+        f"{jax_end:.6g} in {n_iters} steps; synth launches {counts['stage 1']}")
+    if not (losses.shape == (REAL_STAGE1_ITERS,) and np.isfinite(losses).all()):
+        raise RuntimeError("stage 1: non-finite or missing losses")
+    if not losses[-1] < jax_end:
+        raise RuntimeError(f"stage 1: the loss after {REAL_STAGE1_ITERS} steps, "
+                           f"{losses[-1]:.6g}, is not below the JAX package's after "
+                           f"{n_iters}, {jax_end:.6g}")
+    for name, n in counts["stage 1"].items():
+        if n < REAL_STAGE1_ITERS:
+            raise RuntimeError(f"stage 1 launched {name} {n} times, fewer than its "
+                               f"{REAL_STAGE1_ITERS} steps")
+
+    # stage 1's step: profile, kernels' share; precision against the CPU
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss_fn = MSSLoss([512, 256, 128, 64, 32], SR, loss_type="l1_loss")
+    gt = torch.as_tensor(audio, dtype=torch.float32, device="cuda")
+    tc = loss_fn.target_cache(gt)
+    fz = forces.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    opt = torch.optim.Adam(list(p.values()), lr=5e-3)
+
+    def s1_step():
+        opt.zero_grad(set_to_none=True)
+        sig, _ = bank(p, fz, noise_rate=2e-4, generator=gen)
+        loss_fn(sig, None, target_cache=tc).backward()
+        opt.step()
+
+    profile_step("step profile, stage 1 (8 x 256 x 8000)", s1_step,
+                 kernels=("synth_fwd_kernel", "synth_bwd_kernel"))
+    gap, cos = stage1_precision_check(audio, torch.device("cuda"))
+    if not (gap <= STAGE1_GATES["loss"] and min(cos.values()) >= STAGE1_GATES["cos"]):
+        raise RuntimeError("stage 1: the f32 step on the card disagrees with the CPU's f64 "
+                           "step beyond its gates")
+    chained_curve = material_real.extract_damping_curve(bank, params)
+    log(f"stage 1 -> curve: {len(chained_curve.x)} bands, damping "
+        f"{fmt(chained_curve.y, 2)} 1/s")
+
+    # stage 2 from the fixed r2 curve
+    early, late = REAL_STAGE2_EPOCHS
+    zero_counts()
+    res = material_real.train_material_real(mesh, audio, curve, MatSet.Ceramic,
+                                            max_epoch=early + late, early_loss_epoch=early,
+                                            verbose=False)
+    torch.cuda.synchronize()
+    counts["stage 2"] = read_counts()
+    log(f"stage 2: synth launches {counts['stage 2']}")
+    check_stage2("stage 2 (r2 curve)", res, REAL_STAGE2_EPOCHS)
+    # every step synthesizes; the geomloss gradient reaches the frequencies
+    # through the point clouds' positions, not through the signal, so only
+    # the L1 steps run the backward kernel
+    if counts["stage 2"]["synth_constant_modes"] < early + late or \
+            counts["stage 2"]["synth_constant_modes_bwd"] < late:
+        raise RuntimeError(f"stage 2 launched the synth kernels {counts['stage 2']} times "
+                           f"in {early} geomloss and {late} L1 steps")
+
+    # stage 2's steps at 8 mics: geomloss peak memory and profiles
+    model = build_model(mesh=mesh, mode_num=16, order=2, mat=MatSet.Ceramic, task="material")
+    cache = model.modal_cache(res["eig"])
+    osc = OscillatorBank(8, 16, 8000, SR, Material.of(MatSet.Ceramic))
+    osc_params = osc.init_params(torch.Generator(device="cuda").manual_seed(0))
+    sp = {k: v.detach().clone().requires_grad_(True) for k, v in res["params"].items()}
+    with torch.no_grad():
+        f_now = model.get_undamped_freqs_cached(sp, cache)
+    cd = torch.as_tensor(curve(f_now.double().cpu().numpy()), dtype=torch.float32,
+                         device="cuda")
+    fz = impulse_forces(8, 150, torch.float32, "cuda")
+    for loss_type, n_ffts in (("geomloss", [2048, 1024]), ("l1_loss", [1024, 512, 256, 128, 64])):
+        fn = MSSLoss(n_ffts, SR, loss_type=loss_type)
+        tcs = fn.target_cache(gt)
+        opt = torch.optim.Adam(list(sp.values()), lr=1e-3)
+
+        def s2_step():
+            opt.zero_grad(set_to_none=True)
+            sig, damped = osc.forward_curve(osc_params, model.get_undamped_freqs_cached(sp, cache),
+                                            cd, fz)
+            fn(sig, None, damped, 1.0, target_cache=tcs).backward()
+            model.bins.mask_grads(sp)
+            opt.step()
+
+        if loss_type == "geomloss":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            s2_step()
+            torch.cuda.synchronize()
+            log(f"stage 2 geomloss step at 8 mics: peak memory "
+                f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above "
+                f"{base / 2**30:.3f} GiB already allocated")
+            profile_step("step profile, stage 2 geomloss (8 mics)", s2_step, steps=5,
+                         profiled=2, kernels=("synth_fwd_kernel", "synth_bwd_kernel"))
+        else:
+            profile_step("step profile, stage 2 L1 (8 mics)", s2_step,
+                         kernels=("synth_fwd_kernel", "synth_bwd_kernel"))
+
+    # the chained run: stage 1's own curve into stage 2, on the coarser
+    # cube_tet_mesh(6, 0.3) (6,591 DOF), whose two cold solves take seconds
+    early, late = REAL_CHAINED_EPOCHS
+    res2 = material_real.train_material_real(cube_tet_mesh(6, 0.3), audio, chained_curve,
+                                             MatSet.Ceramic,
+                                             max_epoch=early + late, early_loss_epoch=early,
+                                             verbose=False)
+    torch.cuda.synchronize()
+    check = res2["losses"]
+    log(f"chained stage 1 -> curve -> stage 2: Newton start E {res2['newton']['E']:.6g} nu "
+        f"{res2['newton']['nu']:.5f}; loss {check[0]:.6g} -> {check[-1]:.6g}; E "
+        f"{res2['youngs']:.6g} nu {res2['poisson']:.5f}; wall {res2['wall_s']:.3f} s")
+    if not (np.isfinite(check).all() and len(check) == early + late and all(np.isfinite(
+            [res2["newton"]["E"], res2["newton"]["nu"], res2["youngs"], res2["poisson"]]))):
+        raise RuntimeError("chained stage 1 -> stage 2: non-finite values")
+    real_cli(audio)
+    return counts
+
+
+def real_cli(audio):
+    """material_real's CLI main on cube_tet_mesh(4, 0.3) with the recordings
+    written as mic*.wav files: fresh (stage 1 of REAL_CLI's steps, the
+    cache, stage 2), then from the stage-1 cache."""
+    from diffsound_torch.audio.io import write_wav
+    from diffsound_torch.experiments import material_real
+    from diffsound_torch.fem.mesh import cube_tet_mesh, write_msh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        mesh = cube_tet_mesh(4, 0.3)
+        msh = os.path.join(tmp, "cube.msh")
+        write_msh(msh, mesh.vertices, mesh.tets)
+        audio_dir = os.path.join(tmp, "audio")
+        os.makedirs(audio_dir)
+        for i, x in enumerate(audio):
+            write_wav(os.path.join(audio_dir, f"mic{i}.wav"), 0.5 * x, int(SR))
+        with open(os.path.join(audio_dir, "metadata.yaml"), "w") as f:
+            f.write("gain:\n- 0.0\n- 6.0\npad:\n- 0.0\n- 0.0\n")
+        cfg = {"sample_rate": 32000, "frame_num": 8000, "force_frame_num": 150,
+               "mesh_dir": msh, "audio_dir": audio_dir, "material": "Ceramic",
+               "audio_num": 8, "mode_num": 16, "exp_mode": 3,
+               "out_dir": os.path.join(tmp, "out"), **REAL_CLI}
+        cfg_path = os.path.join(tmp, "real.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        for run in ("fresh", "cached"):
+            t0 = time.perf_counter()
+            zero_counts()
+            res = material_real.main(["--config", cfg_path])
+            counts = read_counts()
+            with open(os.path.join(tmp, "out", "result.txt")) as f:
+                fields = [line.strip().split(":", 1) for line in f if ":" in line]
+            youngs, poisson = (float(v) for _, v in fields[-2:])
+            log(f"cli material_real ({run}): result.txt E {youngs:.6g} nu {poisson:.5f} in "
+                f"{time.perf_counter() - t0:.3f} s; synth launches {counts}")
+            stage1 = REAL_CLI["gt_iters"] if run == "fresh" else 0
+            want = {"synth_constant_modes": stage1 + REAL_CLI["max_epoch"],
+                    "synth_constant_modes_bwd": stage1 + REAL_CLI["max_epoch"]
+                    - REAL_CLI["early_loss_epoch"]}
+            if not (math.isfinite(youngs) and math.isfinite(poisson)
+                    and (youngs, poisson) == (res["youngs"], res["poisson"])):
+                raise RuntimeError(f"cli material_real ({run}): bad result.txt")
+            if any(counts[k] < n for k, n in want.items()):
+                raise RuntimeError(f"cli material_real ({run}): synth kernels launched "
+                                   f"{counts}, expected at least {want}")
+            if not os.path.exists(os.path.join(tmp, "out", "stage1_fit.npz")):
+                raise RuntimeError("cli material_real: no stage-1 cache written")
+
+
 def cli_phase():
     """material_sync's CLI main on a small cube mesh, one pair, each recipe."""
     from diffsound_torch.experiments import material_sync
@@ -924,6 +1346,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     cli_phase()
     log(f"phase cli: {time.perf_counter() - t_phase:.3f} s")
+    t_phase = time.perf_counter()
+    real_launches = material_real_phase()
+    log(f"phase material_real: {time.perf_counter() - t_phase:.3f} s")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
 
     kernels = [{
@@ -932,6 +1357,10 @@ def main() -> int:
         "source": "diffsound_torch/csrc/synth.cu",
         "replaces": replaces,
         "launches": launches[name],
+        # each path's own count, zeroed just before it and read just after
+        "launches_by_path": {"material_sync newton": launches[name],
+                             **{f"material_real {k}": v[name]
+                                for k, v in real_launches.items()}},
         **figures[name],
         "library_ms": None,
     } for name, replaces in (

@@ -11,7 +11,10 @@ Counterpart of `diffsound_tpu/audio/mss_loss.py`:
                  early phase of material inference.
 
 `target_cache` precomputes the target-side spectrograms once per training
-run; passing it to `__call__` gives bit-identical losses.
+run; passing it to `__call__` gives bit-identical losses.  The small
+utility losses at the end (`lsd_loss`, `mode_loss`, `mel_scale`,
+`inv_mel_scale`, `reconstruct_signal`) are the JAX package's, for
+evaluation scripts; no trainer calls them.
 """
 
 from __future__ import annotations
@@ -206,3 +209,40 @@ class MSSLoss:
             tc = target_cache[i] if target_cache is not None else None
             total = total + sss(x_pred, x_true, freqs, scale, target_cache=tc)
         return total
+
+
+# ---------------------------------------------------------------------------
+# Small spectral utility losses
+# ---------------------------------------------------------------------------
+
+
+def lsd_loss(spec_pred, spec_true, eps: float = 1e-7):
+    """Log-spectral distance."""
+    lp = torch.log10(spec_pred.abs() + eps)
+    lt = torch.log10(spec_true.abs() + eps)
+    return torch.sqrt(((lp - lt) ** 2).mean())
+
+
+def mode_loss(pred_freqs, gt_freqs):
+    """Nearest-mode relative error plus the fundamental's relative error."""
+    R = (pred_freqs[:, None] - gt_freqs[None, :]) ** 2
+    err = torch.sqrt(R.amin(dim=0)) / gt_freqs
+    return err.mean() + (pred_freqs[0] - gt_freqs[0]).abs() / gt_freqs[0]
+
+
+def mel_scale(freq):
+    """Hz -> mel."""
+    return 2595.0 * torch.log10(1.0 + freq / 700.0)
+
+
+def inv_mel_scale(mel):
+    return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+
+
+def reconstruct_signal(undamped_freq, damp, sample_num: int, sample_rate: float):
+    """Sum of undamped sinusoids at the damped frequencies."""
+    damped = torch.sqrt(
+        torch.clamp((2 * math.pi * undamped_freq) ** 2 - damp**2, min=0.0)
+    ) / (2 * math.pi)
+    t = torch.arange(sample_num, dtype=damped.dtype, device=damped.device) / sample_rate
+    return torch.sin(2 * math.pi * damped[:, None] * t[None, :]).sum(dim=0)

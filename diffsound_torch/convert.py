@@ -19,9 +19,22 @@ def params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
     of leaf tensors on `device` (float32 like the trainers' params; the
     parity tests pass float64 to compare the chain above f32 roundoff)."""
     return {
-        k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device).clone()
+        k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
         for k, v in params.items()
     }
+
+
+def osc_params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
+    """JAX `OscillatorBank` or `GTOscillatorBank` params (numpy leaves; the
+    GT bank nests its noise params as {"noise": {"coeff_bank": x}}) -> the
+    port's flat dict of leaf tensors on `device` ("noise_coeff_bank")."""
+    flat = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            flat.update({f"{k}_{kk}": vv for kk, vv in v.items()})
+        else:
+            flat[k] = v
+    return params_from_jax(flat, device, dtype)
 
 
 def eigen_state_from_numpy(eigenvalues, eigenvectors, dtype, device="cpu",

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..audio.oscillator import weighted_value
+from ..audio.oscillator import cached_values, uniform, weighted_value
 from ..fem.material import Material, lame_params
 
 PARAM_DTYPE = torch.float32
@@ -48,22 +48,14 @@ class MaterialBins:
 
     def init_params(self, generator: torch.Generator, device="cpu"):
         """Logits uniform in [-1, 1), drawn from `generator`."""
-        def draw(n):
-            u = torch.rand(n, generator=generator, dtype=PARAM_DTYPE, device=generator.device)
-            return (u * 2.0 - 1.0).to(device)
-
         return {
-            "youngs_logits": draw(self.bin_num),
-            "poisson_logits": draw(len(self.poisson_values)),
+            "youngs_logits": uniform(generator, self.bin_num, -1.0, 1.0, PARAM_DTYPE).to(device),
+            "poisson_logits": uniform(generator, len(self.poisson_values), -1.0, 1.0,
+                                      PARAM_DTYPE).to(device),
         }
 
     def _values(self, name, logits):
-        key = (name, logits.dtype, logits.device)
-        if key not in self._tensors:
-            self._tensors[key] = torch.as_tensor(
-                getattr(self, name), dtype=logits.dtype, device=logits.device
-            )
-        return self._tensors[key]
+        return cached_values(self._tensors, name, getattr(self, name), logits)
 
     def youngs(self, params):
         lg = params["youngs_logits"]

@@ -1,6 +1,7 @@
 """The port on the card: the synthesis kernels, forward and backward, against
-their plain versions, their autograd function and dispatch, and a short
-MaterialSyncTask run on CUDA.
+their plain versions (also at the material_real GT bank's tables), their
+autograd function and dispatch, and short material_sync and material_real
+runs on CUDA.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
@@ -130,6 +131,61 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
         synth_kernel.synth_kernel_bwd(f, d, a, torch.ones((2, 1), device=cuda_device).expand(2, 1000), 1000, SR)
     with pytest.raises(TypeError):
         synth_kernel.synth_kernel_bwd(f, d, a, g.double(), 1000, SR)
+
+
+@pytest.mark.cuda
+def test_kernels_take_the_gt_bank_dampings(cuda_device):
+    """The GT bank's tables: dampings up to 5e4 1/s (alpha to 600, beta to
+    1e-5 at up to 16 kHz), over-damped modes with the damped frequency
+    clamped to 1.6e-7 Hz.  Underflowing envelopes give zeros, never NaN, in
+    the forward and in every gradient."""
+    A, M, T = 8, 256, 8000
+    rng = np.random.default_rng(3)
+    f = rng.uniform(20.0, 16000.0, (A, M))
+    alpha = np.exp(rng.uniform(np.log(0.6), np.log(600.0), (A, M)))
+    beta = np.exp(rng.uniform(np.log(1e-8), np.log(1e-5), (A, M)))
+    f[:, 0], alpha[:, 0] = 20.0, 600.0  # over-damped: d > 2 pi f
+    d = 0.5 * (alpha + beta * (2 * np.pi * f) ** 2)
+    fd = np.sqrt(np.maximum((2 * np.pi * f) ** 2 - d**2, 1e-12)) / (2 * np.pi)
+    a = rng.uniform(0.5, 0.52, (A, M))
+    assert d.max() > 4e4 and (fd < 1e-6).any()
+    f, d, a = (torch.as_tensor(x, dtype=torch.float32, device=cuda_device) for x in (fd, d, a))
+    out = synth_kernel.synth_kernel(f, d, a, T, SR)
+    ref = synth_constant_modes_plain(f, d, a, T, SR)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() <= 1e-5 * a.abs().sum(dim=1, keepdim=True)).all()
+    g = torch.randn((A, T), generator=torch.Generator(cuda_device).manual_seed(0),
+                    device=cuda_device)
+    got = synth_kernel.synth_kernel_bwd(f, d, a, g, T, SR)
+    want = synth_constant_modes_bwd_plain(f.double(), d.double(), a.double(), g.double(), T, SR)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        assert float((x.double() - y).abs().max() / y.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_material_real_short_run_on_cuda(cuda_device):
+    """Stage 1 launches both kernels every step; stage 2 runs on the card."""
+    from diffsound_torch.audio.damping import DampingCurve
+    from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+
+    t = (np.arange(2000) + 1) / SR
+    audio = np.stack([np.exp(-30 * t) * np.sin(2 * np.pi * f * t) for f in (900.0, 2300.0)])
+    forces = torch.zeros((2, 150))
+    forces[:, 0] = 1.0
+    before = (synth_kernel.LAUNCHES, synth_kernel.LAUNCHES_BWD)
+    _, params, losses = fit_gt_oscillator(audio, forces, 64, SR, (2700, 7.2e10, 0.19, 6, 1e-7),
+                                             iters=20, verbose=False)
+    assert synth_kernel.LAUNCHES - before[0] == 20
+    assert synth_kernel.LAUNCHES_BWD - before[1] == 20
+    assert params["amp_raw"].is_cuda and np.isfinite(losses).all()
+    xs = np.linspace(100.0, 16000.0, 50)
+    res = train_material_real(cube_tet_mesh(3, 0.5), audio, DampingCurve(xs, 4.0 + 1e-3 * xs),
+                              (2700, 7.2e10, 0.19, 6, 1e-7), mode_num=8, max_epoch=16,
+                              early_loss_epoch=1, verbose=False)
+    assert np.isfinite(res["losses"]).all() and len(res["refresh_iters"]) == 1
+    assert math.isfinite(res["youngs"]) and math.isfinite(res["poisson"])
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from diffsound_torch.audio import synth_kernel
 from diffsound_torch.audio.mss_loss import spec_to_points
 from diffsound_torch.audio.oscillator import synth_constant_modes
 from diffsound_torch.experiments import material_sync
+from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
 from diffsound_torch.fem.mesh import cube_tet_mesh, write_msh
 from diffsound_torch.models.sound_obj import DiffSoundObject, build_model
@@ -52,7 +53,8 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("entry", [build_model, DiffSoundObject.__init__, MaterialSyncTask])
+@pytest.mark.parametrize("entry", [build_model, DiffSoundObject.__init__, MaterialSyncTask,
+                                   fit_gt_oscillator, train_material_real])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
