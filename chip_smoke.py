@@ -20,8 +20,9 @@ fails the run by raising:
    version, and of SynthFn's forward and backward against autograd of the
    plain version.
 3. Main path at full width: material_sync's `newton` recipe
-   (`MaterialSyncTask.make_gt` / `.train_newton`) on `cube_tet_mesh(13,
-   0.3)` at order 2 (59,049 DOF), 16 modes, 8000 samples at 32 kHz,
+   (`MaterialSyncTask.make_gt` / `.train_newton`) on `cube_tet_mesh(9,
+   0.3)` at order 2 (20,577 DOF; depth cut from 59,049 to leave the time
+   limit room for the shape phase), 16 modes, 8000 samples at 32 kHz,
    flagship pair 0: the modal-Newton fit (20 rounds, three extraction
    windows), then a 300-epoch polish (5-scale L1 + 300 x freq-chamfer) with
    an eigensolve refresh every 15.  The launch counts of both kernels are
@@ -34,13 +35,12 @@ fails the run by raising:
    L1-only and the polish step at that width: host time, device time and
    kernel launches per step.
 4. Epoch recipes at full audio width on `cube_tet_mesh(9, 0.3)` at order 2
-   (20,577 DOF): the reference recipe (45 Sinkhorn `geomloss` epochs, then
-   15 L1 epochs) and the default epoch recipe (15 freq-chamfer epochs, then
-   15 of L1 + 300 x chamfer); one geomloss step in f32 on the card against
-   the port's f64 on the CPU, at the reference run's params and at ten
-   seeded steps, each gated by the JAX package's own f32 gap; the
-   geomloss step's peak memory and profile; the modal-Newton fit on this
-   mesh against the JAX package's on the same mesh.
+   (20,577 DOF), from the main path's ground truth: the reference recipe
+   (45 Sinkhorn `geomloss` epochs, then 15 L1 epochs) and the default epoch
+   recipe (15 freq-chamfer epochs, then 15 of L1 + 300 x chamfer); one
+   geomloss step in f32 on the card against the port's f64 on the CPU, at
+   the reference run's params and at ten seeded steps, each gated by the
+   JAX package's own f32 gap; the geomloss step's peak memory and profile.
 5. CLI phase: `python -m diffsound_torch.experiments.material_sync`'s
    `main` on a small cube mesh written to a .msh file, for each recipe
    (`newton`, `adam`, `reference`).
@@ -56,6 +56,20 @@ fails the run by raising:
    step's peak memory; the chained run (stage 1's own curve into stage 2,
    finite values); the material_real CLI, fresh and from its stage-1
    cache.
+7. Shape phase at the configs' widths (grid 64, mesh_scale 1.5, Steel,
+   order 1, the warm eigensolver) on procedural OBJ meshes: thickness (an
+   icosphere, 32 modes, target 0.4: Newton from 0.5 within 0.02 of it,
+   then ten Adam steps from the JAX package's PRNGKey(0) bins that must
+   move toward it) and morphing (an icosphere and an ellipsoid, 16 modes,
+   target 0.7: Newton from 0.5 within 0.05); at c 0.5 on the host basis the
+   card's float32 Ritz values and dvals/dc against the JAX package's
+   float64 (JAX_SHAPE); after the Adam steps a warm solve across the
+   remesh back to 0.4 against the target's host ARPACK solve; the parts'
+   times (setup, cold and warm solves, march and compaction, the Ritz pass
+   and its peak memory, one Newton iteration's host and device time).  The
+   two tasks run at once (morphing in a second process).  Then both shape
+   CLIs at grid 16 with each optimizer.  No synthesis kernel runs here: the
+   shape loss is the relative eigenvalue mismatch.
 
 The line before the last is one JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -365,10 +379,8 @@ SINKHORN_F32_GAP = 3e-5
 # candidate c = 0.142 converges to a wrong fixed point whose match weight
 # (2.75) beats the right candidate's (c = 0.176: E 1.726e10, nu 0.3252,
 # match weight 2.67) in every extraction window.  The port's fit is held to
-# it, at 20,577 DOF and at 59,049: JAX is not run at 59,049 DOF (a
-# full-size configuration runs only on the card, whose machine has no JAX),
-# and the two fixed points lie 20% apart in E and 0.29 in nu, ten times
-# the gate, so the gate tells them apart at either mesh.
+# it on this very mesh, in the main path and the epoch recipes; the two
+# fixed points lie 20% apart in E and 0.29 in nu, ten times the gate.
 JAX_NEWTON_PAIR0 = (13706449104.670244, 0.03435030386545765)
 
 # material_real: the synthetic recordings' material, and the in-repo
@@ -475,7 +487,8 @@ def check_newton(label, res, gt_mat):
 def main_path_phase():
     """The material_sync `newton` recipe at full width: ground truth, the
     modal-Newton fit over three extraction windows, and the 300-epoch polish
-    (L1 + 300 x freq-chamfer).  Returns the kernels' launch counts."""
+    (L1 + 300 x freq-chamfer).  Returns the kernels' launch counts and the
+    ground truth (the epoch recipes run on the same mesh and pair)."""
     import numpy as np
     import torch
 
@@ -485,7 +498,7 @@ def main_path_phase():
     from diffsound_torch.fem.mesh import cube_tet_mesh
     from diffsound_torch.models.sound_obj import build_model
 
-    mesh = cube_tet_mesh(13, 0.3)
+    mesh = cube_tet_mesh(9, 0.3)
     init_mat, gt_mat = flagship_material_pairs(1)[0]
     task = MaterialSyncTask(mesh=mesh, mode_num=16, sample_rate=SR, frame_num=8000,
                             force_frame_num=150, exp_mode=3)
@@ -529,8 +542,8 @@ def main_path_phase():
     log(f"main path: synth kernel launches {launches['synth_constant_modes']}, "
         f"synth backward kernel launches {launches['synth_constant_modes_bwd']}")
 
-    if dof != 59049:
-        raise RuntimeError(f"expected 59,049 DOF, got {dof}")
+    if dof != 20577:
+        raise RuntimeError(f"expected 20,577 DOF, got {dof}")
     check_losses("main path polish", losses, polish)
     for name, n in launches.items():
         if n < polish:
@@ -540,7 +553,7 @@ def main_path_phase():
     # A warm refresh against host ARPACK at the same material: from the last
     # refresh's eigenvectors back to the material of the polish's cold
     # ARPACK solve (a fresh ARPACK solve at the last refresh's material
-    # would cost another 120-170 s of the script's time limit)
+    # would cost another cold solve of the script's time limit)
     mu, lam = res["cold_lame"][-1]
     check = build_model(mesh=mesh, mode_num=16, order=2, mat=init_mat, task="material")
     t0 = time.perf_counter()
@@ -563,7 +576,7 @@ def main_path_phase():
     cache = check.modal_cache(eig)
     for chamfer in (False, True):
         step_profile(check, cache, res["params"], gt_audio, init_mat, chamfer)
-    return launches
+    return launches, gt_audio
 
 
 def step_inputs(init_mat, gt_audio, dtype):
@@ -830,14 +843,16 @@ def geomloss_gap(label, card, cpu, gate):
                            f"from f64 than its gate")
 
 
-def reference_phase():
+def reference_phase(gt_audio=None):
     """The epoch recipes at full audio width on cube_tet_mesh(9, 0.3) at
-    order 2 (20,577 DOF): the reference recipe (45 geomloss epochs across
-    three refreshes, then 15 L1 epochs) and the default epoch recipe (15
-    freq-chamfer epochs, then 15 of L1 + 300 x chamfer).  Then the geomloss
-    step on the card in f32 against the port's f64 on the CPU, at the
-    reference run's params and eigenvectors and at the ten seeded steps of
-    tests/test_torch_geomloss_f32.py, and a profile of the geomloss step."""
+    order 2 (20,577 DOF), from the main path's ground truth when given: the
+    reference recipe (45 geomloss epochs across three refreshes, then 15 L1
+    epochs) and the default epoch recipe (15 freq-chamfer epochs, then 15 of
+    L1 + 300 x chamfer).  Then the geomloss step on the card in f32 against
+    the port's f64 on the CPU, at the reference run's params and
+    eigenvectors and at the ten seeded steps of
+    tests/test_torch_geomloss_f32.py, and a profile of the geomloss step.
+    (The modal-Newton fit on this mesh is the main path's.)"""
     import numpy as np
     import torch
 
@@ -851,10 +866,11 @@ def reference_phase():
     init_mat, gt_mat = flagship_material_pairs(1)[0]
     task = MaterialSyncTask(mesh=mesh, mode_num=16, sample_rate=SR, frame_num=8000,
                             force_frame_num=150, exp_mode=3)
-    t0 = time.perf_counter()
-    gt_audio, _ = task.make_gt(gt_mat)
-    torch.cuda.synchronize()
-    log(f"epoch recipes: ground truth at 20,577 DOF {time.perf_counter() - t0:.3f} s")
+    if gt_audio is None:
+        t0 = time.perf_counter()
+        gt_audio, _ = task.make_gt(gt_mat)
+        torch.cuda.synchronize()
+        log(f"epoch recipes: ground truth at 20,577 DOF {time.perf_counter() - t0:.3f} s")
     runs = {}
     for name, kw in (("reference", dict(max_epoch=60, early_loss_epoch=45,
                                         early_loss_type="geomloss", late_freq_weight=0.0)),
@@ -880,13 +896,6 @@ def reference_phase():
                 counts["synth_constant_modes_bwd"] < kw["max_epoch"] - early:
             raise RuntimeError(f"{name} recipe: synth kernels launched {counts}")
         runs[name] = res
-
-    fit = task.train_newton(init_mat, gt_audio, rounds=20, polish_epochs=0, verbose=False)
-    solves = fit["fit"]["solves"]
-    log(f"newton fit at 20,577 DOF: {fit['fit']['wall_s']:.3f} s, {len(solves)} solves; "
-        + "; ".join(f"window {w['window']}@{w['n_fft']} E {w['E']:.6g} nu {w['nu']:.5f} "
-                    f"coverage {w['score']:.5f}" for w in fit["fit"]["windows"]))
-    check_newton("newton fit at 20,577 DOF", fit, gt_mat)
 
     res = runs["reference"]
     model = build_model(mesh=mesh, mode_num=16, order=2, mat=init_mat, task="material")
@@ -1313,6 +1322,461 @@ def cli_phase():
                 raise RuntimeError(f"cli {recipe}: synth kernels launched {counts}")
 
 
+# The shape phase: thickness and morphing at the configs' widths
+# (configs/{thickness,morphing}_train.json: dmtet_grid 64, mesh_scale 1.5,
+# Steel, order 1, the warm eigensolver) on procedural closed meshes written
+# as OBJ files (the reference's frog and turtle are not in the repository).
+# Sizes in OBJ units, before mesh_scale; scripts/jax_shape_reference.py holds
+# the same numbers.
+SHAPE_GRID, SHAPE_SCALE, SHAPE_MAT = 64, 1.5, "Steel"
+# an icosphere(2): about 70k DOF at c 0.4-0.5, near the 67k of the JAX
+# package's grid-64 frog calibration
+THICKNESS_SPEC = dict(radius=0.22, modes=32, target=0.4)
+# an icosphere(2) and an ellipsoid (the icosphere scaled per axis): the blend
+# has 62,847 DOF at c 0.5 and 69,561 at 0.7
+MORPHING_SPEC = dict(radius=0.237, axes=(0.273, 0.182, 0.146), modes=16, target=0.7)
+# The JAX package's float64 numbers on these meshes (the CPU, host ARPACK):
+# `python -m scripts.jax_shape_reference --task thickness` / `--task
+# morphing`: the compact mesh's DOF at c 0.5, the target eigenvalues, and at
+# c 0.5 on the host basis the Ritz values, dvals/dc and dl/dc, and the same
+# pass's gaps in the JAX package's float32.
+JAX_SHAPE = {
+    "thickness": dict(
+        dof_c05=69930, dldc_c05=1.0510833814265055,
+        f32_gap_vals=1.9979203587427996e-05, f32_gap_dvals=0.0005749009379936691,
+        dldc_c05_f32=1.0517062152510768,
+        target_vals=(
+            276815580.7690877, 276815580.7701469, 278356342.97455007, 280607415.99551994,
+            280607415.99618405, 525768135.75433624, 525768135.76000315, 526819155.60827416,
+            526819155.61017466, 527336314.8775565, 699844987.7447622, 701294224.2648724,
+            713020424.0927424, 713020424.0941956, 717275617.235845, 719592012.5542159,
+            719592012.5597053, 1108318115.3934157, 1302649370.0396929, 1309118096.3776503,
+            1309118096.3784337, 1309839777.0690691, 1322638835.5318716, 1323102363.0113037,
+            1323102363.0151105, 1375129627.9645932, 1377602523.6214924, 1377602523.6215425,
+            1417586798.649143, 1417586798.6518478, 1447470071.6503952, 1452211298.318658,
+        ),
+        vals_c05=(
+            352205440.264349, 352205440.2643575, 353934209.1328108, 356575861.86742955,
+            356575861.8674362, 553954938.0062393, 553954938.0062478, 555145094.2409433,
+            555145094.2409477, 555723847.9327302, 943679317.9228154, 945360775.5553983,
+            957941406.1668917, 957941406.1668983, 962620926.2106974, 965470864.1790345,
+            965470864.1790392, 1299038923.7282984, 1357272059.8344562, 1364920710.1532006,
+            1364920710.1532075, 1365806474.1781166, 1374411345.560378, 1378643234.8360045,
+            1378643234.8360095, 1380673335.3242893, 1380959617.5726757, 1380959617.5726795,
+            1870218803.200761, 1870218803.200765, 1903039736.087231, 1907573529.636337,
+        ),
+        dvals_c05=(
+            834519996.2605993, 834519996.2147896, 840420695.958851, 837881226.7933154,
+            837881226.8074936, 234322818.3093146, 234322818.37542874, 237311930.53483275,
+            237311930.62159395, 238121686.49713847, 2497192857.5524516, 2526166591.9035344,
+            2521127404.9794607, 2521127404.8695173, 2529754248.7297797, 2534767970.5915112,
+            2534767970.288291, 2153298990.2934055, 399043184.8856399, 409100968.061122,
+            409100968.03064793, 406506125.19012636, -329594848.3335496,
+            -310772647.15760684, -310772647.10005534, 429233367.50691336,
+            424650582.3152729, 424650582.4017666, 4194334559.8468556, 4194334559.839674,
+            4242419427.1363435, 4197481455.005442,
+        ),
+    ),
+    "morphing": dict(
+        dof_c05=62847, dldc_c05=-0.09555096472986421,
+        f32_gap_vals=8.238591100107051e-06, f32_gap_dvals=0.006651257070689922,
+        dldc_c05_f32=-0.09582883659059224,
+        target_vals=(
+            485022016.94972, 487844409.64310634, 517961283.70938545, 593612848.5670997,
+            607144005.0497848, 636612295.1540004, 653621254.4281785, 668628739.5541209,
+            671259744.6442653, 675947819.4394681, 1019796631.8974609, 1140384305.2009683,
+            1191063831.59249, 1192183256.5638561, 1254395029.4892347, 1278998923.6124625,
+        ),
+        vals_c05=(
+            450809509.318691, 466729868.13288856, 498863085.92897993, 605572308.2188903,
+            638509214.2881079, 698161412.634852, 760410948.6515394, 764804151.0141708,
+            774379624.4950787, 809589613.0851756, 1050142023.2039492, 1150796891.9954703,
+            1156787997.9732008, 1282218439.6898963, 1298770048.1049836, 1361467819.9054475,
+        ),
+        dvals_c05=(
+            213108152.39857054, 128644643.43700188, 144985831.809836, -40417908.01846595,
+            -158047214.3492518, -333146611.11130726, -487171286.5988735,
+            -480749964.9257059, -649380561.1331215, -776696724.3747593,
+            -183788855.42687255, 256019795.58611846, 223721410.15960285, 68443454.29602712,
+            -879188006.234807, -319338671.7345202,
+        ),
+    ),
+}
+# `CoefBins(32).init_params(jax.random.PRNGKey(0))` of the JAX package: the
+# start of its Adam loop (ThicknessTask.optimize), from the same script
+JAX_COEF_LOGITS = (
+    -0.16308577656722711, -0.5674090907889773, 0.930642922237995, 0.1490010674550093,
+    0.0644529765010855, -0.29018963946051146, 0.7660179523179806, 0.2651207805928286,
+    0.06760015348762494, -0.6166922370414936, 0.7083533039093157, -0.881121418421916,
+    0.28678342468524365, 0.9881423359883565, 0.20402922876416518, -0.22336769590704764,
+    -0.40658315149176527, 0.2870877609193392, -0.15536180933377874, 0.8674384047774026,
+    0.04708695716915168, 0.11258925892464244, 0.14952755164985998, 0.03727104342769216,
+    -0.842488506529727, -0.15457838683375247, 0.7343021236472018, -0.9740552945257464,
+    -0.42629016912677686, 0.23686119618088108, -0.7510416027798223, 0.010408078842656376,
+)
+# The card's Ritz pass at c 0.5 on the host basis against the JAX package's
+# float64.  In float32 (the task's dtype on the card) the largest relative
+# gap of the values and the relative norm of the dvals/dc error are held to
+# SHAPE_F32_MARGIN times the JAX package's own float32 gap on the same mesh
+# and basis (JAX_SHAPE's f32_gap_*), and dl/dc must keep JAX's float64
+# sign: float32's own error in dvals/dc is 0.7% on the morphing blend and
+# 6e-4 on the thickness shell in the JAX package, so a fixed gate would
+# either miss a fault on the shell or fail f32 itself on the blend.
+# The same pass in float64 on the card is held to 1e-8 in both (the CPU
+# tests hold float64 to 1e-9; the two packages' ARPACK bases differ by
+# rotations within the span).
+SHAPE_F32_MARGIN = 4.0
+SHAPE_F64_GATE = 1e-8
+# Warm against cold at full width: after the thickness task's Adam steps
+# (its basis at c ~0.45), one warm solve across the remesh to the target's
+# c 0.4, against the target's host ARPACK solve on that same compact mesh.
+# The gate: the solve is accepted warm (no host re-anchor) and its 32
+# elastic eigenvalues lie within 1e-3 of ARPACK's.  A Ritz value's error
+# is about the residual squared over the relative gap to the modes outside
+# the block: at the float32 tolerance (relative residual 3e-3) 9e-6 over
+# gaps down to 1% (the JAX package reads 1.5e-4 at a residual of 1e-2 on
+# the grid-64 frog, warm_eigs.py:84-86).  A solve may end
+# above the tolerance at the 240-iteration cap and still be accepted below
+# the escalation bound (3e-2); the residual is printed, and the
+# eigenvalue gate holds either way.
+WARM_GATE = 1e-3
+
+
+def shape_meshes(tmp):
+    """The phase's OBJ meshes, written and read back: {name: (verts, faces)}."""
+    import numpy as np
+
+    from diffsound_torch.fem.mesh import icosphere, read_obj, write_obj
+
+    v, f = icosphere(2, MORPHING_SPEC["radius"])
+    shapes = {"ball": icosphere(2, THICKNESS_SPEC["radius"]), "morph_ball": (v, f),
+              "morph_egg": (v / MORPHING_SPEC["radius"] * np.array(MORPHING_SPEC["axes"]), f)}
+    out = {}
+    for name, (v, f) in shapes.items():
+        path = os.path.join(tmp, f"{name}.obj")
+        write_obj(path, v, f)
+        out[name] = read_obj(path)
+    return out
+
+
+class ShapeProbe:
+    """Records a shape task's parts by wrapping its methods on the instance:
+    each host ARPACK solve (seconds, DOF), each warm solve (ms, LOBPCG
+    iterations including an escalation round, residual, mode) and each
+    Ritz value-and-derivative pass (c, values, dvals/dc, ms, peak memory)."""
+
+    def __init__(self, task):
+        import torch
+
+        self.cold, self.warm, self.jac = [], [], []
+        host, solve, jac = task._eigensolve_host, task.warm.solve, task._coef_vals_jac
+
+        def eigensolve_host(out, comp):
+            t0 = time.perf_counter()
+            r = host(out, comp)
+            self.cold.append((time.perf_counter() - t0, 3 * comp["num_verts"]))
+            return r
+
+        def warm_solve(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve(*args, **kw)
+            torch.cuda.synchronize()
+            w = task.warm
+            if w.last_mode != "cold":
+                self.warm.append(dict(ms=1e3 * (time.perf_counter() - t0), mode=w.last_mode,
+                                      iters=w.last_iterations, resid=w.last_resid))
+            return r
+
+        def coef_vals_jac(c, comp, U):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            vals, dvals = jac(c, comp, U)
+            torch.cuda.synchronize()
+            rec = dict(c=c, mode=task.warm.last_mode, vals=vals, dvals=dvals,
+                       ms=1e3 * (time.perf_counter() - t0),
+                       peak=torch.cuda.max_memory_allocated() - base, dof=3 * comp["num_verts"])
+            if not self.jac:
+                # the first pass (the point the JAX gate reads) once more in
+                # float64 on the card
+                dtype, task.dtype = task.dtype, torch.float64
+                rec["f64"] = jac(c, comp, U)
+                task.dtype = dtype
+            self.jac.append(rec)
+            return vals, dvals
+
+        task._eigensolve_host = eigensolve_host
+        task.warm.solve = warm_solve
+        task._coef_vals_jac = coef_vals_jac
+
+    def report(self, label):
+        import numpy as np
+
+        log(f"{label}: {len(self.cold)} cold solves (host ARPACK), seconds "
+            f"{fmt((s for s, _ in self.cold), 3)} at DOF {[d for _, d in self.cold]}")
+        log(f"{label}: {len(self.warm)} warm solves, ms {fmt((w['ms'] for w in self.warm), 1)}; "
+            f"LOBPCG iterations {[w['iters'] for w in self.warm]}; max residual "
+            f"{' '.join(f'{w['resid']:.2e}' for w in self.warm)}; modes "
+            f"{sorted(set(w['mode'] for w in self.warm))}")
+        ms = [j["ms"] for j in self.jac]
+        log(f"{label}: {len(ms)} Ritz value-and-derivative passes (forward mode), ms "
+            f"{fmt(ms, 1)}; peak memory above the resident {max(j['peak'] for j in self.jac) / 2**20:.1f} "
+            f"MiB (median pass {np.median(ms):.1f} ms)")
+
+
+def shape_gate(label, probe, ref):
+    """The card's float32 Ritz values and dvals/dc at c 0.5 on the host
+    basis (the first Newton iteration) against the JAX package's float64."""
+    import numpy as np
+
+    first = probe.jac[0]
+    if not (first["c"] == 0.5 and first["mode"] == "cold"):
+        raise RuntimeError(f"{label}: the first Ritz pass ran at c {first['c']} on a "
+                           f"{first['mode']} basis, not at 0.5 on the host basis")
+    want_v, want_d = np.asarray(ref["vals_c05"]), np.asarray(ref["dvals_c05"])
+    target = np.asarray(ref["target_vals"])
+
+    def gaps(vals, dvals):
+        r = (vals - target) / target
+        return (float(np.abs(vals / want_v - 1).max()),
+                float(np.linalg.norm(dvals - want_d) / np.linalg.norm(want_d)),
+                float(2.0 * np.mean(r * dvals / target)))
+
+    gap_v, gap_d, dldc = gaps(first["vals"], first["dvals"])
+    gap_v64, gap_d64, dldc64 = gaps(*first["f64"])
+    gate_v = SHAPE_F32_MARGIN * ref["f32_gap_vals"]
+    gate_d = SHAPE_F32_MARGIN * ref["f32_gap_dvals"]
+    log(f"{label}: at c 0.5 on the host basis ({first['dof']} DOF, JAX {ref['dof_c05']}), "
+        f"card f32 against JAX f64: values {gap_v:.3e} (JAX f32 {ref['f32_gap_vals']:.3e}, "
+        f"gate {gate_v:.3e}), dvals/dc {gap_d:.3e} in relative norm (JAX f32 "
+        f"{ref['f32_gap_dvals']:.3e}, gate {gate_d:.3e}); dl/dc {dldc:.6g} against JAX's "
+        f"{ref['dldc_c05']:.6g} (JAX f32 {ref['dldc_c05_f32']:.6g}); card f64: {gap_v64:.3e}, "
+        f"{gap_d64:.3e} (gate {SHAPE_F64_GATE:.0e}), dl/dc {dldc64:.9g}; Ritz pass "
+        f"{first['ms']:.1f} ms, peak {first['peak'] / 2**20:.1f} MiB")
+    if first["dof"] != ref["dof_c05"]:
+        raise RuntimeError(f"{label}: the compact mesh at c 0.5 has {first['dof']} DOF, "
+                           f"the JAX package's {ref['dof_c05']}")
+    if not (gap_v <= gate_v and gap_d <= gate_d
+            and np.sign(dldc) == np.sign(ref["dldc_c05"])
+            and max(gap_v64, gap_d64) <= SHAPE_F64_GATE):
+        raise RuntimeError(f"{label}: the card's Ritz values or derivative disagree with "
+                           f"the JAX package's beyond the gates")
+
+
+def profile_once(label, fn):
+    """Host wall time and device work of one call of fn (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    work = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in work)
+    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    log(f"{label}: host {host_ms:.1f} ms, device work {device_ms:.1f} ms (idle share "
+        f"{1 - device_ms / host_ms:.3f}), {launches} cudaLaunchKernel calls")
+    if not 0 < device_ms < host_ms:
+        raise RuntimeError(f"{label}: device work {device_ms:.3f} ms against {host_ms:.3f} ms")
+    return host_ms, device_ms
+
+
+def march_compact_times(label, task, c, reps=3):
+    """Logs the ms of the device march and of the host compaction at c, and
+    the bytes the compaction moves from the card (the valid sub-tets, int32,
+    and their corners, float64)."""
+    import torch
+
+    from diffsound_torch.geometry.dmtet import MarchingTets
+
+    march, compact = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = task._march_coef(c)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        comp = MarchingTets.compact(out)
+        march.append(1e3 * (t1 - t0))
+        compact.append(1e3 * (time.perf_counter() - t1))
+    n_valid = int(out.tet_mask.sum())
+    moved = n_valid * (4 * 4 + 4 * 3 * 8)
+    log(f"{label}: march {fmt(march, 2)} ms, compact {fmt(compact, 2)} ms at c {c:.4f} "
+        f"({out.sub_tets.shape[0]} sub-tet slots, {n_valid} valid, {moved / 2**20:.2f} MiB "
+        f"to the host; {3 * comp['num_verts']} DOF, {comp['num_tets']} tets)")
+
+
+def shape_task(kind, meshes):
+    """One task at full width: setup, target, Newton from 0.5 (then, for
+    thickness, ten Adam steps on the same object).  Returns its launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from diffsound_torch.geometry.tasks import MorphingTask, ThicknessTask
+
+    spec = THICKNESS_SPEC if kind == "thickness" else MORPHING_SPEC
+    ref = JAX_SHAPE[kind]
+    zero_counts()
+    t_task = t0 = time.perf_counter()
+    cls = ThicknessTask if kind == "thickness" else MorphingTask
+    task = cls(grid_res=SHAPE_GRID, scale=SHAPE_SCALE, mat=SHAPE_MAT, mode_num=spec["modes"])
+    t1 = time.perf_counter()
+    if kind == "thickness":
+        v, f = meshes["ball"]
+        task.apply_sdf(v * SHAPE_SCALE, f)
+    else:
+        (v1, f1), (v2, f2) = meshes["morph_ball"], meshes["morph_egg"]
+        task.apply_sdf2(v1 * SHAPE_SCALE, f1, v2 * SHAPE_SCALE, f2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"shape {kind}: setup {t2 - t0:.3f} s (background grid and edges {t1 - t0:.3f} s, "
+        f"signed distances on the card {t2 - t1:.3f} s); {task.marching.num_grid_verts} grid "
+        f"vertices, {task.marching.num_edges} edges, {len(task.marching.grid_tets)} tets")
+    probe = ShapeProbe(task)
+    t0 = time.perf_counter()
+    target = task.eigenvalues(spec["target"])
+    tgt_gap = float(np.abs(target / np.asarray(ref["target_vals"]) - 1).max())
+    log(f"shape {kind}: target eigenvalues at c {spec['target']} in "
+        f"{time.perf_counter() - t0:.3f} s, {tgt_gap:.3e} from the JAX package's")
+    if tgt_gap > 1e-8:
+        raise RuntimeError(f"shape {kind}: host ARPACK targets {tgt_gap:.3e} from JAX's")
+    t0 = time.perf_counter()
+    c, hist = task.newton_optimize(target, iters=40 if kind == "thickness" else 25, c0=0.5,
+                                   verbose=False)
+    torch.cuda.synchronize()
+    newton_s = time.perf_counter() - t0
+    gate = 0.02 if kind == "thickness" else 0.05
+    log(f"shape {kind}: Newton {spec['target']} <- 0.5 ended at {c:.6f} ({abs(c - spec['target']):.2e} "
+        f"off, gate {gate}) in {len(hist)} iterations, {newton_s:.3f} s; iterations' s "
+        f"{fmt((h['dt'] for h in hist), 3)}; losses {' '.join(f'{h['loss']:.3e}' for h in hist)}")
+    shape_gate(f"shape {kind}", probe, ref)
+    if not abs(c - spec["target"]) < gate:
+        raise RuntimeError(f"shape {kind}: Newton ended at {c}, not within {gate} of "
+                           f"{spec['target']}")
+    if kind == "thickness":
+        t0 = time.perf_counter()
+        params = {"coef_logits": torch.tensor(JAX_COEF_LOGITS, dtype=torch.float64)}
+        c_start = task.bins.coef(params)
+        _, ahist = task.optimize(target, iters=10, lr=2e-2, params=params, verbose=False)
+        adam_s = time.perf_counter() - t0
+        losses = np.array([h["loss"] for h in ahist])
+        log(f"shape thickness: 10 Adam steps (lr 2e-2) from the JAX package's PRNGKey(0) "
+            f"bins: coef {c_start:.5f} -> {ahist[-1]['coef']:.5f} in {adam_s:.3f} s; losses "
+            f"{' '.join(f'{x:.4e}' for x in losses)}; skipped "
+            f"{sum(h['skipped'] for h in ahist)}; eigensolves "
+            f"{[(h['eig_mode'], h['eig_iters']) for h in ahist]}")
+        if not (np.isfinite(losses).all()
+                and abs(ahist[-1]["coef"] - spec["target"]) < abs(c_start - spec["target"])):
+            raise RuntimeError("shape thickness: the Adam steps did not move toward the target")
+        warm_check(task, target, spec["target"])
+    probe.report(f"shape {kind}")
+    march_compact_times(f"shape {kind}", task, c)
+
+    def newton_iteration():
+        from diffsound_torch.geometry.dmtet import MarchingTets
+
+        o = task._march_coef(c + 0.01)
+        cp = MarchingTets.compact(o)
+        _, U = task._eigensolve(o, cp)
+        task._coef_vals_jac(c + 0.01, cp, U)
+
+    profile_once(f"shape {kind}: one Newton iteration (warm, c {c + 0.01:.4f})", newton_iteration)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"shape {kind}: {time.perf_counter() - t_task:.3f} s in all; synth launches {counts}")
+    return counts
+
+
+def warm_check(task, target, c):
+    """A warm solve from the task's stored basis across the remesh to c,
+    against `target`, the host ARPACK eigenvalues of the same compact mesh
+    (WARM_GATE)."""
+    import numpy as np
+    import torch
+
+    from diffsound_torch.geometry.dmtet import MarchingTets
+
+    out = task._march_coef(c)
+    comp = MarchingTets.compact(out)
+    overlap = task.warm.overlap(comp)
+    t0 = time.perf_counter()
+    vals, _ = task._eigensolve(out, comp)
+    torch.cuda.synchronize()
+    w = task.warm
+    err = float(np.abs(vals[6:] / target - 1).max())
+    log(f"shape warm check: {3 * comp['num_verts']} DOF at c {c} (slot overlap "
+        f"{overlap:.4f}); {w.last_mode} solve in {1e3 * (time.perf_counter() - t0):.1f} ms, "
+        f"{w.last_iterations} LOBPCG iterations, residual {w.last_resid:.2e} (tol {w.tol}); "
+        f"max relative error over the {len(target)} elastic modes against the target's host "
+        f"ARPACK {err:.3e} (gate {WARM_GATE:.0e})")
+    if not (w.last_mode == "warm" and err <= WARM_GATE):
+        raise RuntimeError("shape warm check: the warm solve disagrees with host ARPACK")
+
+
+def shape_cli(meshes, tmp):
+    """thickness.main and morphing.main at grid 16, one target each, both
+    optimizers."""
+    import numpy as np
+
+    from diffsound_torch.experiments import morphing, thickness
+
+    for name, mod, extra in (
+            ("thickness", thickness, {"mesh_name": "ball", "thickness_list": [0.4]}),
+            ("morphing", morphing, {"mesh_name1": "morph_ball", "mesh_name2": "morph_egg",
+                                    "morphing_list": [0.7]})):
+        for optimizer in ("newton", "adam"):
+            out_dir = os.path.join(tmp, f"{name}_{optimizer}")
+            cfg = {"iter": 5, "learning_rate": 2e-2, "out_dir": out_dir, "init_mesh_dir": tmp,
+                   "mesh_scale": SHAPE_SCALE, "dmtet_grid": 16, "mat": SHAPE_MAT,
+                   "optimizer": optimizer, **extra}
+            path = os.path.join(tmp, f"{name}_{optimizer}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            t0 = time.perf_counter()
+            zero_counts()
+            (target, result), = mod.main(["--config", path])
+            counts = read_counts()
+            files = sorted(os.listdir(out_dir))
+            log(f"cli {name} ({optimizer}): target {target} result {result:.6f} in "
+                f"{time.perf_counter() - t0:.3f} s; wrote {files}; synth launches {counts}")
+            if not (np.isfinite(result) and 0.0 < result < 1.0 and any(
+                    fn.startswith("result_") for fn in files)):
+                raise RuntimeError(f"cli {name} ({optimizer}): bad result")
+            if name == "thickness" and not os.path.exists(
+                    os.path.join(out_dir, "ball", f"result{target}.obj")):
+                raise RuntimeError("cli thickness: no recovered surface written")
+
+
+def shape_phase():
+    """Thickness and morphing at full width, then the CLIs.  The two tasks
+    run at once, morphing in a second process: each spends most of its
+    time in host ARPACK, which uses one core.  Returns each task's launch
+    counts of the synthesis kernels."""
+    import multiprocessing
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shape_") as tmp:
+        meshes = shape_meshes(tmp)
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            morphing = pool.apply_async(shape_task, ("morphing", meshes))
+            launches["thickness"] = shape_task("thickness", meshes)
+            launches["morphing"] = morphing.get()
+        log(f"shape thickness and morphing, concurrently: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        shape_cli(meshes, tmp)
+        log(f"shape cli: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1338,10 +1802,10 @@ def main() -> int:
     figures = kernel_phase(device)
     log(f"phase kernel: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
-    launches = main_path_phase()
+    launches, gt_audio = main_path_phase()
     log(f"phase main path: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
-    reference_phase()
+    reference_phase(gt_audio)
     log(f"phase epoch recipes: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
     cli_phase()
@@ -1349,6 +1813,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     real_launches = material_real_phase()
     log(f"phase material_real: {time.perf_counter() - t_phase:.3f} s")
+    t_phase = time.perf_counter()
+    shape_launches = shape_phase()
+    log(f"phase shape: {time.perf_counter() - t_phase:.3f} s")
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
 
     kernels = [{
@@ -1360,7 +1827,8 @@ def main() -> int:
         # each path's own count, zeroed just before it and read just after
         "launches_by_path": {"material_sync newton": launches[name],
                              **{f"material_real {k}": v[name]
-                                for k, v in real_launches.items()}},
+                                for k, v in real_launches.items()},
+                             **{f"shape {k}": v[name] for k, v in shape_launches.items()}},
         **figures[name],
         "library_ms": None,
     } for name, replaces in (

@@ -133,12 +133,17 @@ def build_element_ops(
     order: int,
     dtype: Optional[torch.dtype] = None,
     tet_mask: Optional[torch.Tensor] = None,
+    gather_idx=None,
 ) -> ElementOps:
     """Differentiable element-operator construction.
 
     vertices: (V, 3) tensor on the target device; tets: (E, N) int (numpy or
     tensor); tet_mask: optional (E,) — masked-out tets contribute exactly
-    zero to both K and M.  dtype defaults to the vertices' dtype."""
+    zero to both K and M.  dtype defaults to the vertices' dtype.
+    gather_idx: optional prebuilt scatter->gather transpose (V, D) whose
+    dummy entries point at row E*N; by default it is built from all of
+    `tets`.  Bucket-padded meshes pass one built from their real tets, so
+    the padding's repeated vertex 0 does not set the depth D."""
     order = int(order)
     n_nodes = num_nodes_for_order(order)
     device = vertices.device
@@ -175,7 +180,7 @@ def build_element_ops(
 
     mass_scale = absdet if tet_mask is None else absdet * tet_mask.to(dtype)
     nv = int(vertices.shape[0])
-    gidx = build_gather_transpose(tets_np, nv)
+    gidx = build_gather_transpose(tets_np, nv) if gather_idx is None else gather_idx
     return ElementOps(
         tets=tets_t,
         k_mu=k_mu.reshape(E_, 3 * N_, 3 * N_),
@@ -211,7 +216,10 @@ def _scatter(ops: ElementOps, ye: torch.Tensor) -> torch.Tensor:
         out.index_add_(0, ops.tets.reshape(-1), flat)
     else:
         rows = torch.cat([flat, flat.new_zeros(1, 3 * k)], dim=0)
-        out = rows[ops.gather_idx].sum(dim=1)  # (V, 3k)
+        # index_select + sum is rows[gather_idx].sum(1) bit for bit, and far
+        # faster than advanced indexing on the CPU
+        V, D = ops.gather_idx.shape
+        out = rows.index_select(0, ops.gather_idx.reshape(-1)).reshape(V, D, 3 * k).sum(dim=1)
     return out.reshape(ops.num_vertices * 3, k)
 
 

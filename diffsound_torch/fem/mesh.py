@@ -124,6 +124,31 @@ def write_msh(path: str, vertices: np.ndarray, tets: np.ndarray, order: int = 1)
         f.write("$EndElements\n")
 
 
+def read_obj(path: str):
+    """Minimal Wavefront OBJ reader -> (vertices (n,3) f64, faces (m,3) i64)."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                for k in range(1, len(idx) - 1):  # fan-triangulate
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.array(verts, dtype=np.float64), np.array(faces, dtype=np.int64)
+
+
+def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray):
+    with open(path, "w") as f:
+        for v in vertices:
+            f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
+        for t in faces:
+            f.write(f"f {int(t[0]) + 1} {int(t[1]) + 1} {int(t[2]) + 1}\n")
+
+
 def read_comsol_txt(path: str):
     """COMSOL text export: comment lines (%), vertex block, %-line, tet block
     with 1-based indices."""
@@ -392,3 +417,40 @@ def cube_tet_mesh(n: int = 2, size: float = 1.0) -> TetMesh:
                 for a, b, c, d in kuhn:
                     tets.append([ids[a], ids[b], ids[c], ids[d]])
     return TetMesh(verts, np.array(tets, dtype=np.int64), order=1)
+
+
+def icosphere(subdiv: int = 2, radius: float = 1.0):
+    """Closed triangle mesh of a sphere: the icosahedron, each face split in
+    four `subdiv` times, vertices pushed out to `radius`.
+    -> (vertices (n, 3) f64, faces (m, 3) i64); 642 vertices and 1280
+    faces at subdiv 3."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = [np.array(v, dtype=np.float64) for v in (
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    )]
+    faces = [
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ]
+    for _ in range(subdiv):
+        mid = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                verts.append((verts[a] + verts[b]) / 2)
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        faces = new_faces
+    verts = np.array(verts)
+    verts = verts / np.linalg.norm(verts, axis=1, keepdims=True) * radius
+    return verts, np.array(faces, dtype=np.int64)

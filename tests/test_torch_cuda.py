@@ -203,3 +203,45 @@ def test_material_sync_short_run_on_cuda(cuda_device):
     assert synth_kernel.LAUNCHES - before >= 30
     assert np.isfinite(res["losses"]).all() and len(res["refresh_iters"]) == 1
     assert math.isfinite(res["youngs"]) and math.isfinite(res["poisson"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["thickness", "morphing"])
+def test_shape_march_on_cuda_equals_cpu(cuda_device, kind):
+    """The shape path's float64 signed distances, marching output and
+    compact mesh on the card equal the CPU's bit for bit (the CPU's equal
+    the JAX package's, tests/test_torch_shape_marching.py), and the warm
+    solve and forward-mode Ritz pass run on CUDA."""
+    from diffsound_torch.fem.mesh import icosphere
+    from diffsound_torch.geometry.dmtet import MarchingTets
+    from diffsound_torch.geometry.tasks import MorphingTask, ThicknessTask
+
+    ball = icosphere(2, 0.42)
+    egg = (ball[0] * np.array([0.95, 0.7, 0.8]), ball[1])
+    tasks = {}
+    for dev in ("cpu", "cuda"):
+        if kind == "thickness":
+            t = ThicknessTask(grid_res=16, scale=1.0, mat="Steel", mode_num=6, device=dev)
+            t.apply_sdf(*ball)
+        else:
+            t = MorphingTask(grid_res=16, scale=1.0, mat="Steel", mode_num=6, device=dev)
+            t.apply_sdf2(*ball, *egg)
+        tasks[dev] = t
+    sdf = {d: (t.sdf if kind == "thickness" else t.sdf1) for d, t in tasks.items()}
+    assert torch.equal(sdf["cuda"].cpu(), sdf["cpu"])
+    outs = {d: t._march_coef(0.55) for d, t in tasks.items()}
+    for name in outs["cpu"]._fields:
+        assert torch.equal(getattr(outs["cuda"], name).cpu(), getattr(outs["cpu"], name)), name
+    comps = {d: MarchingTets.compact(o) for d, o in outs.items()}
+    for k in comps["cpu"]:
+        assert np.array_equal(np.asarray(comps["cuda"][k]), np.asarray(comps["cpu"][k])), k
+    t = tasks["cuda"]
+    t._eigensolve(outs["cuda"], comps["cuda"])  # cold anchor
+    out2 = t._march_coef(0.57)
+    comp2 = MarchingTets.compact(out2)
+    vals, U = t._eigensolve(out2, comp2)
+    assert t.warm.last_mode == "warm" and torch.is_tensor(U) and U.is_cuda
+    ritz, dvals = t._coef_vals_jac(0.57, comp2, U)
+    ref, _ = t._eigensolve_host(out2, comp2)
+    # the warm solve converged to the float32 tolerance (residual 3e-3)
+    assert np.abs(ritz / ref[6:] - 1).max() < 1e-3 and np.isfinite(dvals).all()

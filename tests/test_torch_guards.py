@@ -21,7 +21,12 @@ from diffsound_torch.audio.oscillator import synth_constant_modes
 from diffsound_torch.experiments import material_sync
 from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
-from diffsound_torch.fem.mesh import cube_tet_mesh, write_msh
+from diffsound_torch.experiments import morphing, thickness
+from diffsound_torch.fem.mesh import cube_tet_mesh, icosphere, write_msh, write_obj
+from diffsound_torch.geometry.dmtet import MarchingTets
+from diffsound_torch.geometry.sdf_host import mesh_signed_distance
+from diffsound_torch.geometry.tasks import MorphingTask, ShapeTaskBase, ThicknessTask
+from diffsound_torch.geometry.warm_eigs import WarmShapeEigensolver
 from diffsound_torch.models.sound_obj import DiffSoundObject, build_model
 
 torch.set_num_threads(2)
@@ -54,7 +59,9 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", [build_model, DiffSoundObject.__init__, MaterialSyncTask,
-                                   fit_gt_oscillator, train_material_real])
+                                   fit_gt_oscillator, train_material_real,
+                                   ShapeTaskBase.__init__, MarchingTets.__init__,
+                                   WarmShapeEigensolver.__init__, mesh_signed_distance])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -84,6 +91,33 @@ def test_cli_recipes_raise_without_cuda(tmp_path, monkeypatch, recipe):
                                "force_frame_num": 10, "exp_mode": 3, "recipe": recipe}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         material_sync.main(["--config", str(cfg)])
+
+
+@pytest.mark.parametrize("task", [ThicknessTask, MorphingTask])
+def test_shape_tasks_raise_without_cuda(monkeypatch, task):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        task(grid_res=2, scale=1.0, mat="Steel", mode_num=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh_signed_distance(np.zeros((2, 3)), *icosphere(0))
+    assert task(grid_res=2, scale=1.0, mat="Steel", mode_num=2, device="cpu").dtype == torch.float64
+
+
+@pytest.mark.parametrize("cli", [thickness, morphing])
+def test_shape_clis_raise_without_cuda(tmp_path, monkeypatch, cli):
+    """Both shape CLIs, either optimizer, run on the card unless the config
+    says "device": "cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_obj(str(tmp_path / "a.obj"), *icosphere(1, 0.3))
+    for optimizer in ("adam", "newton"):
+        cfg = tmp_path / "c.json"
+        cfg.write_text(json.dumps({
+            "init_mesh_dir": str(tmp_path), "mesh_name": "a", "mesh_name1": "a",
+            "mesh_name2": "a", "out_dir": str(tmp_path / "o"), "mesh_scale": 1.0,
+            "dmtet_grid": 4, "thickness_list": [0.5], "morphing_list": [0.5], "iter": 1,
+            "learning_rate": 0.01, "mode_num": 2, "optimizer": optimizer}))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--config", str(cfg)])
 
 
 def test_spec_to_points_is_deterministic():
