@@ -57,15 +57,10 @@ class ShapeTaskBase:
         order: int = 1,
         tets_dir: Optional[str] = None,
         eig_method: str = "warm",
-        refresh_every: int = 1,
         device="cuda",
     ):
         """eig_method: "warm" (the device solver, host ARPACK for cold
-        starts) or anything else for host ARPACK at every solve.
-        refresh_every: true eigensolve cadence.  1 = solve every step (the
-        reference re-solves every iteration); N > 1 maps the detached basis
-        across remeshes in between (the Ritz values are exact to first order
-        in the drift)."""
+        starts) or anything else for host ARPACK at every solve."""
         if order != 1:
             raise NotImplementedError("shape tasks run order-1 (parity: thickness_train.py:106)")
         self.device = resolve_device(device)
@@ -87,8 +82,6 @@ class ShapeTaskBase:
             )
         else:
             self.warm = None
-        self.refresh_every = refresh_every
-        self._steps_since_refresh = 0
 
     # material (density-normalized)
     def _lame(self):
@@ -130,16 +123,9 @@ class ShapeTaskBase:
 
     def _eigensolve(self, out, comp):
         """Training-loop eigensolve: the warm device path when enabled (cold
-        starts fall back to host ARPACK inside the warm solver); off the
-        refresh_every cadence the stored basis is only mapped."""
+        starts fall back to host ARPACK inside the warm solver)."""
         if self.warm is None:
             return self._eigensolve_host(out, comp)
-        if self.refresh_every > 1 and self._steps_since_refresh + 1 < self.refresh_every:
-            mapped = self.warm.map_only(out, comp)
-            if mapped is not None:
-                self._steps_since_refresh += 1
-                return mapped
-        self._steps_since_refresh = 0
         mu, lam = self._lame()
         return self.warm.solve(
             out, comp, float(mu), float(lam),
@@ -191,11 +177,9 @@ class ShapeTaskBase:
 
     def _true_loss(self, c: float, target) -> float:
         """Full march + eigensolve + Ritz values at c: the trustworthy loss
-        of newton_optimize's stall probes.  Forces a true eigensolve even
-        under a refresh_every > 1 cadence."""
+        of newton_optimize's stall probes."""
         out = self._march_coef(float(c))
         comp = MarchingTets.compact(out)
-        self._steps_since_refresh = self.refresh_every
         lam, U = self._eigensolve(out, comp)
         vals = self._coef_vals(c, comp, U)
         r = (vals - target) / target

@@ -56,13 +56,10 @@ class WarmShapeEigensolver:
         k: int,
         dtype=torch.float32,
         device="cuda",
-        reanchor_every: int = 0,
     ):
         """num_global_slots: V + Eg of the background grid (rows of
         MarchingOutput.all_verts).  k: modes incl. the rigid block.
-        dtype: the solve's working dtype (the stored basis is float32).
-        reanchor_every: force a host cold solve every N warm solves
-        (0 = never)."""
+        dtype: the solve's working dtype (the stored basis is float32)."""
         self.num_global_slots = num_global_slots
         self.k = k
         # guard columns absorb the slowly separating directions just above
@@ -76,14 +73,8 @@ class WarmShapeEigensolver:
         # 1.5e-4 relative eigenvalue error on the grid-64 shell; f64
         # converges comfortably at 1e-4
         self.tol = 3e-3 if dtype == torch.float32 else 1e-4
-        self.reanchor_every = reanchor_every
         # minimum fraction of the new mesh's vertices already in the basis
         self.min_overlap = 0.6
-        # the first round carries products (cheap, converges short
-        # refreshes); an escalation round uses this body ("recompute":
-        # robust across remesh jumps; "reuse": cheap, products rebuilt at
-        # re-entry)
-        self.escalation_body = "recompute"
 
         self.U_global = None  # device (slots + 1, 3, kg); row slots = dump
         self.seen = np.zeros(num_global_slots, bool)
@@ -91,15 +82,12 @@ class WarmShapeEigensolver:
         # source for brand-new slots (newly crossing edges), whose zero rows
         # would otherwise stall the refresh
         self.slot_pos = np.full((num_global_slots, 3), np.nan, np.float64)
-        self.warm_count = 0  # consecutive warm solves since last anchor
         self.total_warm = 0
         self.total_cold = 0
-        self.total_mapped = 0
         self.last_iterations = 0
         self.last_resid = 0.0  # max residual of the last warm solve
         self.last_mode = "none"
         self._anchor_requested = False
-        self.last_vals = None  # (k,) numpy from the last true solve
 
     # -- host <-> device basis management -----------------------------------
 
@@ -197,28 +185,6 @@ class WarmShapeEigensolver:
             res.residual_norms[: self.k].double().cpu().numpy(),
         )
 
-    # -- refresh-free basis mapping ------------------------------------------
-
-    def map_only(self, out, comp):
-        """Map the stored basis onto the current (remeshed) geometry without
-        an eigensolve: (last_vals (k,), U (3*vpad, k) device).  The
-        downstream Rayleigh-Ritz values are exact to first order in the
-        drift since the last true solve.  None when no solved basis exists
-        yet or the overlap is too low (the caller must refresh)."""
-        if self.U_global is None or self.last_vals is None:
-            return None
-        if self.overlap(comp) < self.min_overlap:
-            return None
-        self._fill_new_slots(out, comp)
-        vpad = len(comp["keep_idx"])
-        keep = torch.as_tensor(np.asarray(comp["keep_idx"]), device=self.device)
-        U = self.U_global[keep].reshape(3 * vpad, self.kg)[:, : self.k]
-        dof_mask = torch.zeros(3 * vpad, dtype=torch.float32, device=self.device)
-        dof_mask[: 3 * comp["num_verts"]] = 1.0
-        self.total_mapped += 1
-        self.last_mode = "mapped"
-        return self.last_vals, U * dof_mask[:, None]
-
     def _prep_args(self, out, comp, mu: float, lam: float):
         """Device inputs of `_solve_once`."""
         dev, dt = self.device, self.dtype
@@ -246,13 +212,11 @@ class WarmShapeEigensolver:
         vals, U = host_solve()
         self.store_host(comp, U)
         self.mark_positions(out, comp)
-        self.warm_count = 0
         self.total_cold += 1
         self.last_mode = mode
         self.last_iterations = int(iterations)
         self.last_resid = 0.0
         self._anchor_requested = False
-        self.last_vals = np.asarray(vals, np.float64)
         return vals, U
 
     def solve(
@@ -267,12 +231,8 @@ class WarmShapeEigensolver:
         stored basis covers it, host ARPACK otherwise.  Returns (vals (k,)
         numpy, U (3*vpad, k)): a device tensor after a warm solve, the host
         solver's numpy array after a cold one."""
-        need_cold = self.U_global is None or self._anchor_requested
-        if not need_cold and self.reanchor_every:
-            need_cold = self.warm_count >= self.reanchor_every
-        if not need_cold:
-            need_cold = self.overlap(comp) < self.min_overlap
-        if need_cold:
+        if self.U_global is None or self._anchor_requested or (
+                self.overlap(comp) < self.min_overlap):
             return self._cold(out, comp, host_solve, "cold")
 
         self._fill_new_slots(out, comp)
@@ -283,8 +243,8 @@ class WarmShapeEigensolver:
         esc = max(3e-2, 3.0 * self.tol)
         if np.isfinite(resid).all() and float(resid.max()) > esc:
             # geometry jumped past the budget: continue the same device solve
-            # from its own output with the robust recompute body
-            vals, U, iters2, resid = self._solve_once(args, self.escalation_body == "reuse")
+            # from its own output, products recomputed every iteration
+            vals, U, iters2, resid = self._solve_once(args, reuse=False)
             iters = iters + iters2
         if not np.isfinite(resid).all() or float(resid.max()) > esc:
             # genuinely diverged: host re-anchor
@@ -292,13 +252,11 @@ class WarmShapeEigensolver:
         keep_nv = np.asarray(comp["keep_idx"])[: comp["num_verts"]]
         self.seen[keep_nv] = True
         self.slot_pos[keep_nv] = self._positions(out, keep_nv)
-        self.warm_count += 1
         self.total_warm += 1
         self.last_mode = "warm"
         self.last_iterations = int(iters)
         self.last_resid = float(resid.max())
-        self.last_vals = vals.double().cpu().numpy()
-        return self.last_vals, U
+        return vals.double().cpu().numpy(), U
 
     def request_anchor(self):
         """Force the next solve() to re-anchor on the host (for callers whose

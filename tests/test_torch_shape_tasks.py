@@ -294,24 +294,12 @@ def test_newton_cycle_break_bisects_and_retreat_halves(monkeypatch):
     assert c == pytest.approx(hist[2]["coef"])
 
 
-def test_true_loss_forces_a_real_refresh(monkeypatch):
-    task = ThicknessTask(grid_res=4, scale=1.0, mat="Steel", mode_num=4, refresh_every=3,
-                         device="cpu")
-    task.warm = _CappedWarmStub()
-    called = {"map": 0, "solve": 0}
-    task.warm.map_only = lambda out, comp: called.__setitem__("map", called["map"] + 1) or (
-        np.ones(4), np.ones((3, 4)))
-
-    def fake_solve(out, comp, mu, lam, host_solve):
-        called["solve"] += 1
-        return np.ones(4), np.ones((3, 4))
-
-    task.warm.solve = fake_solve
-    comp = {"keep_idx": np.zeros(1, np.int64), "tets": np.zeros((1, 4), np.int64),
-            "tet_mask": np.ones(1), "num_verts": 1, "num_tets": 1}
-    monkeypatch.setattr(task, "_march_coef", lambda c: None)
-    monkeypatch.setattr(tasks_mod.MarchingTets, "compact", staticmethod(lambda out: comp))
-    monkeypatch.setattr(task, "_coef_vals", lambda c, comp, U: np.ones(4))
-    task._steps_since_refresh = 0  # mid-cadence: a normal step would map
-    task._true_loss(0.5, np.ones(4))
-    assert called == {"map": 0, "solve": 1}
+@pytest.mark.parametrize("kind", ["thickness", "morphing"])
+def test_true_loss_matches_jax(kind):
+    """The stall probes' loss, a full march, host eigensolve and Ritz pass
+    at c, in both packages: within 1e-9 relative."""
+    j, t = _pair(kind, grid=8, modes=6, eig_method="host")
+    target = j.eigenvalues(0.6)
+    lj = j._true_loss(0.45, np.asarray(target))
+    lt = t._true_loss(0.45, target)
+    assert lj > 1e-6 and lt == pytest.approx(lj, rel=1e-9)

@@ -1,8 +1,8 @@
 """The port's Ritz-refined eigenvalues against the JAX package's (values and
 derivative, float64), and its warm shape eigensolver against host ARPACK
 on the CPU: the remesh sequence of the JAX package's own warm test, the
-refresh-free basis map, the dump row of the scatter, and the escalation
-round.  The warm solver's guard noise comes from a torch generator, so its
+forced and low-overlap re-anchors, the dump row of the scatter, and the
+escalation round.  The warm solver's guard noise comes from a torch generator, so its
 output is held against ARPACK, not against JAX's warm output bit for bit."""
 
 import numpy as np
@@ -108,39 +108,36 @@ def test_warm_solver_matches_host_over_a_remesh_sequence():
     assert torch.equal(stored, U[:n].to(torch.float32))
 
 
-def test_map_only_matches_jax_after_a_cold_anchor(task):
-    """After a cold anchor (host ARPACK in both packages) the refresh-free
-    map onto a remeshed geometry gathers the stored float32 rows at seen
-    slots and the nearest seen slot's rows at new ones.  ARPACK's bases of
-    the sphere's repeated modes differ between the packages by rotations
-    within each cluster, so the gate is on what the map feeds: the Ritz
-    values of the two mapped bases, within 1e-6."""
-    from diffsound_tpu.geometry.dmtet import MarchingTets as JMarching
-    from diffsound_tpu.geometry.tasks import ThicknessTask as JThickness
+def test_request_anchor_forces_one_host_solve(task):
+    """A requested anchor makes the next solve a host ARPACK solve (its
+    values are ARPACK's, bit for bit) and the one after it warm again."""
+    modes = []
+    for i, coef in enumerate([0.5, 0.51, 0.52, 0.53]):
+        if i == 2:
+            task.warm.request_anchor()
+        out, comp = _march(task, coef)
+        vals, _ = task._eigensolve(out, comp)
+        modes.append(task.warm.last_mode)
+        if i == 2:
+            assert np.array_equal(vals, task._eigensolve_host(out, comp)[0])
+    assert modes == ["cold", "warm", "cold", "warm"]
+    assert (task.warm.total_cold, task.warm.total_warm) == (2, 2)
 
-    jtask = JThickness(grid_res=10, scale=1.0, mat=MAT, mode_num=8, tets_dir="/nonexistent",
-                       eig_method="warm")
-    jtask.apply_sdf(*icosphere(2, radius=0.42))
+
+def test_low_slot_overlap_forces_a_host_solve(task):
+    """A remesh that leaves less than min_overlap of the new mesh's vertices
+    in the stored basis re-anchors on the host instead of solving warm (the
+    grid-10 shell's remeshes keep 65% or more of it, so the bar is raised
+    here above the 0.5 -> 0.2 remesh's 68%)."""
     out, comp = _march(task, 0.5)
-    assert task.warm.map_only(out, comp) is None  # nothing solved yet
-    vals, _ = task._eigensolve(out, comp)
-    jout = jtask._march(jtask.sdf, jnp.asarray(0.5 * jtask.max_thickness))
-    jvals, _ = jtask._eigensolve(jout, JMarching.compact(jout))
-    assert np.abs(vals / jvals - 1)[6:].max() < 1e-9
-
-    out2, comp2 = _march(task, 0.55)
-    jout2 = jtask._march(jtask.sdf, jnp.asarray(0.55 * jtask.max_thickness))
-    jcomp2 = JMarching.compact(jout2)
-    assert 0.6 < task.warm.overlap(comp2) < 1.0  # new slots to fill
-    mapped_vals, mapped_U = task.warm.map_only(out2, comp2)
-    jmapped_vals, jmapped_U = jtask.warm.map_only(jout2, jcomp2)
-    assert np.array_equal(mapped_vals, vals) and task.warm.last_mode == "mapped"
-    jmapped_U = np.asarray(jmapped_U)
-    assert mapped_U.dtype == torch.float32 and mapped_U.shape == jmapped_U.shape
-    assert not mapped_U[3 * comp2["num_verts"]:].any()
-    ritz = task._coef_vals(0.55, comp2, mapped_U)
-    jritz_vals = jtask._coef_vals(0.55, jcomp2, jmapped_U)
-    assert np.abs(ritz / jritz_vals - 1).max() < 1e-6
+    task._eigensolve(out, comp)
+    out2, comp2 = _march(task, 0.2)
+    task.warm.min_overlap = 0.7
+    assert task.warm.overlap(comp2) < task.warm.min_overlap
+    vals, U = task._eigensolve(out2, comp2)
+    assert task.warm.last_mode == "cold" and task.warm.total_cold == 2
+    assert isinstance(U, np.ndarray)
+    assert np.array_equal(vals, task._eigensolve_host(out2, comp2)[0])
 
 
 def test_scatter_sends_pad_rows_to_the_dump_row(task):
@@ -153,19 +150,30 @@ def test_scatter_sends_pad_rows_to_the_dump_row(task):
     assert len(np.unique(keep[:nv])) == nv
 
 
-def test_escalation_round_with_the_reuse_body_matches_host(task):
+def test_escalation_round_recomputes_products_and_matches_host(task, monkeypatch):
     """tests/test_shape_tasks.py::test_warm_escalation_reuse_body_matches_host
-    for the port: a large jump whose first carried-products round caps must
-    converge through the escalation round or be recorded as suspect."""
-    task.warm.escalation_body = "reuse"
+    for the port's escalation body: a large jump whose first carried-products
+    round caps runs a second round that recomputes its products, and then
+    converges, is recorded as suspect, or re-anchors on the host."""
     task.warm.max_iters = 60
     out, comp = _march(task, 0.55)
     task._eigensolve(out, comp)
     assert task.warm.last_mode == "cold"
-    out2, comp2 = _march(task, 0.30)
+    rounds = []
+    solve_once = task.warm._solve_once
+
+    def spy(args, reuse):
+        rounds.append(reuse)
+        return solve_once(args, reuse)
+
+    monkeypatch.setattr(task.warm, "_solve_once", spy)
+    out2, comp2 = _march(task, 0.25)
     vals, _ = task._eigensolve(out2, comp2)
+    assert rounds == [True, False]
     ref_vals, _ = task._eigensolve_host(out2, comp2)
     rel = np.abs(vals[6:] - ref_vals[6:]) / np.abs(ref_vals[6:])
+    if task.warm.last_mode == "warm":
+        assert task.warm.last_iterations == 2 * task.warm.max_iters
     if task.warm.last_mode == "warm" and task.warm.last_resid <= task.warm.tol:
         assert rel.max() < 2e-4
     elif task.warm.last_mode == "warm":
