@@ -37,6 +37,20 @@ def osc_params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
     return params_from_jax(flat, device, dtype)
 
 
+def sdf_params_from_jax(mlp: dict, deform, device="cpu", dtype=torch.float64) -> dict:
+    """JAX `SDFGeometry` params -> the port's: flax's
+    {"params": {"Dense_i": {"kernel" (in, out), "bias"}}} (numpy leaves) and
+    `deform` (V, 3) -> {"mlp": {"layers.i.weight" (out, in), "layers.i.bias"},
+    "deform"} as leaf tensors on `device`."""
+    as_t = lambda x: torch.tensor(np.array(x), dtype=dtype, device=device)
+    dense = mlp["params"]
+    out = {}
+    for i in range(len(dense)):
+        out[f"layers.{i}.weight"] = as_t(np.asarray(dense[f"Dense_{i}"]["kernel"]).T)
+        out[f"layers.{i}.bias"] = as_t(dense[f"Dense_{i}"]["bias"])
+    return {"mlp": out, "deform": as_t(deform)}
+
+
 def eigen_state_from_numpy(eigenvalues, eigenvectors, dtype, device="cpu",
                            iterations: int = 0, residual=None) -> EigenState:
     vals = torch.as_tensor(np.asarray(eigenvalues), dtype=dtype, device=device)

@@ -385,6 +385,25 @@ class TetMesh:
             self.vertices[used], inverse.reshape(self.tets.shape), order=self.order
         )
 
+    def largest_connected_component(self) -> "TetMesh":
+        """Keep only the largest vertex-connected component (marching tets
+        can leave islands that make the mass matrix singular)."""
+        import scipy.sparse as sp
+
+        c = self.corner_tets()
+        rows = np.concatenate([c[:, 0], c[:, 1], c[:, 2], c[:, 3]])
+        cols = np.concatenate([c[:, 1], c[:, 2], c[:, 3], c[:, 0]])
+        A = sp.coo_matrix(
+            (np.ones_like(rows, dtype=np.float32), (rows, cols)),
+            shape=(self.num_vertices, self.num_vertices),
+        )
+        n_comp, labels = sp.csgraph.connected_components(A, directed=False)
+        if n_comp == 1:
+            return self
+        largest = np.bincount(labels, minlength=n_comp).argmax()
+        keep_tet = np.all(labels[c] == largest, axis=1)
+        return TetMesh(self.vertices, self.tets[keep_tet], self.order).remove_unreferenced_vertices()
+
     def scaled(self, factor: float) -> "TetMesh":
         return replace(self, vertices=self.vertices * factor)
 

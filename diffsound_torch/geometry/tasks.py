@@ -45,6 +45,26 @@ from .sdf_host import mesh_signed_distance
 from .warm_eigs import WarmShapeEigensolver, padded_gather_transpose
 
 
+def eigensolve_host(out, comp, mu: float, lam: float, k: int, sigma: float):
+    """ARPACK (k modes near sigma) on the compacted geometry of a march, in
+    float64 on the host; returns padded (lam (k,), U (3 * Vc_pad, k)) as
+    numpy, zero on the pad rows."""
+    with torch.no_grad():
+        keep = torch.as_tensor(comp["keep_idx"], device=out.all_verts.device)
+        verts_c = out.all_verts[keep].to(device="cpu", dtype=torch.float64)
+    ops = assembly.build_element_ops(
+        verts_c, comp["tets"], 1, dtype=torch.float64,
+        tet_mask=torch.as_tensor(comp["tet_mask"], dtype=torch.float64),
+        gather_idx=padded_gather_transpose(comp),
+    )
+    K, M = assembly.assemble_scipy(ops, mu, lam, 1.0)
+    n_real = 3 * comp["num_verts"]
+    vals, vecs = eigsh_shift_invert(K[:n_real, :n_real], M[:n_real, :n_real], k=k, sigma=sigma)
+    U = np.zeros((3 * len(comp["keep_idx"]), k))
+    U[:n_real] = vecs
+    return vals, U
+
+
 class ShapeTaskBase:
     """Shared marching/compaction/eigensolve machinery."""
 
@@ -102,24 +122,8 @@ class ShapeTaskBase:
     def _eigensolve_host(self, out, comp):
         """ARPACK on the compacted geometry in float64 on the host; returns
         padded (lam, U) as numpy."""
-        with torch.no_grad():
-            keep = torch.as_tensor(comp["keep_idx"], device=out.all_verts.device)
-            verts_c = out.all_verts[keep].to(device="cpu", dtype=torch.float64)
-        ops = assembly.build_element_ops(
-            verts_c, comp["tets"], 1, dtype=torch.float64,
-            tet_mask=torch.as_tensor(comp["tet_mask"], dtype=torch.float64),
-            gather_idx=padded_gather_transpose(comp),
-        )
-        mu, lam = self._lame()
-        K, M = assembly.assemble_scipy(ops, mu, lam, 1.0)
-        n_real = 3 * comp["num_verts"]
-        K = K[:n_real, :n_real]
-        M = M[:n_real, :n_real]
-        k = self.mode_num + self.extra_modes
-        vals, vecs = eigsh_shift_invert(K, M, k=k, sigma=self.sigma)
-        U = np.zeros((3 * len(comp["keep_idx"]), k))
-        U[:n_real] = vecs
-        return vals, U
+        return eigensolve_host(out, comp, *self._lame(), self.mode_num + self.extra_modes,
+                               self.sigma)
 
     def _eigensolve(self, out, comp):
         """Training-loop eigensolve: the warm device path when enabled (cold

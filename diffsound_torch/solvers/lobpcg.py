@@ -212,6 +212,23 @@ def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
     )
 
 
+def lobpcg_solver_freq(a_fn, b_fn, x0, freq_limit: Optional[float] = None,
+                       rigid_modes: int = 6, **kwargs):
+    """Solve, drop the rigid-body block, and apply an optional frequency
+    cutoff.  x0 (n, k + rigid_modes).  Returns (vals (<=k,), vecs (n, <=k))
+    as numpy arrays without the eigenvalues above (2 pi freq_limit)^2 (a
+    data-dependent width, hence host arrays)."""
+    import numpy as np
+
+    res = lobpcg(a_fn, b_fn, x0, **kwargs)
+    vals = res.eigenvalues.cpu().numpy()
+    vecs = res.eigenvectors.cpu().numpy()
+    if freq_limit is not None:
+        keep = vals < (2.0 * np.pi * freq_limit) ** 2
+        vals, vecs = vals[keep], vecs[:, keep]
+    return vals[rigid_modes:], vecs[:, rigid_modes:]
+
+
 def jacobi_preconditioner(diag: torch.Tensor):
     """Inverse-diagonal preconditioner from diag(A) (n,)."""
     inv = torch.where(diag > 0, 1.0 / diag, torch.ones_like(diag))

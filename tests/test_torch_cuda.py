@@ -1,7 +1,7 @@
 """The port on the card: the synthesis kernels, forward and backward, against
 their plain versions (also at the material_real GT bank's tables), their
-autograd function and dispatch, and short material_sync and material_real
-runs on CUDA.
+autograd function and dispatch, short material_sync and material_real
+runs on CUDA, the shape march and the geometry loss-gradient pass.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
@@ -245,3 +245,52 @@ def test_shape_march_on_cuda_equals_cpu(cuda_device, kind):
     ref, _ = t._eigensolve_host(out2, comp2)
     # the warm solve converged to the float32 tolerance (residual 3e-3)
     assert np.abs(ritz / ref[6:] - 1).max() < 1e-3 and np.isfinite(dvals).all()
+
+
+@pytest.mark.cuda
+def test_geometry_loss_gradient_pass_on_cuda(cuda_device):
+    """The geometry task's loss-gradient pass on the card, at one CPU
+    compaction and host basis (grid 12, hidden 64): in float64 equal to the
+    CPU's (1e-10 in the losses, 1e-7 in relative norm of the gradients); in
+    float32 the loss within 1e-5 of float64, the eigenvalue loss within
+    1e-3, the loss's gradient within 1e-5 and the eigenvalue loss's
+    gradient in the MLP's parameters within 5e-2 in relative norm (the
+    CPU's float32 reads 4.2e-7, 9.5e-5, 3.7e-7 and 5.0e-3 here; a zero
+    gradient reads 1), every gradient finite.  The float32 eigenvalue
+    gradient in every parameter and in deform is not gated: deform's part,
+    a per-vertex field that sliver tets dominate, reads 0.29 on the CPU."""
+    import chip_smoke
+    from diffsound_torch.geometry.dmtet import MarchingTets
+    from diffsound_torch.geometry.geometry_task import GeometryTask
+    from diffsound_torch.geometry.sdf_mlp import SDFGeometry
+
+    def task(dev):
+        t = GeometryTask(grid_res=12, scale=1.0, freq_num=1, mode_num=8, eig_method="host",
+                         device=dev)
+        t.geo = SDFGeometry(t.grid_verts, 12, 1.0, 1, hidden_dim=64, device=dev)
+        return t
+
+    cpu, card = task("cpu"), task(cuda_device)
+    p = cpu.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    q = rng.uniform(-0.5, 0.5, (2000, 3))
+    sd = 0.32 - np.linalg.norm(q, axis=1)
+    p = cpu.pretrain_sdf(p, q, 0.38 - np.linalg.norm(q, axis=1), iters=300, lr=1e-3)
+    out = cpu._march_params(p)
+    comp = MarchingTets.compact(out)
+    _, U = cpu._eigensolve_host(out, comp, 14)
+    target = cpu._eigensolve_host(out, comp, 14)[0][6:] * 0.9
+    ref = chip_smoke.geometry_pass(cpu, p, comp, U, target, torch.as_tensor(q),
+                                   torch.as_tensor(sd))
+    n_def = p["deform"].numel()
+    on_card = lambda dt: {"mlp": {k: v.to(cuda_device, dt) for k, v in p["mlp"].items()},
+                          "deform": p["deform"].to(cuda_device, dt)}
+    # gates in chip_smoke.GEOMETRY_GAPS' order
+    for dt, gates in ((torch.float64, (1e-10, 1e-10, 1e-7, 1e-7, 1e-7, 1e-7)),
+                      (torch.float32, (1e-5, 1e-3, 1e-5, 5e-2))):
+        got = chip_smoke.geometry_pass(card, on_card(dt), comp, U, target,
+                                       torch.as_tensor(q, device=cuda_device, dtype=dt),
+                                       torch.as_tensor(sd, device=cuda_device, dtype=dt))
+        assert np.isfinite(got[2].numpy()).all() and np.isfinite(got[3].numpy()).all()
+        gaps = chip_smoke.geometry_gaps(got, ref, n_def)
+        assert all(g <= gate for g, gate in zip(gaps, gates)), (dt, gaps)

@@ -162,3 +162,17 @@ def test_vertex_gradient_matches_jax(order):
         + (o.mass_scale * torch.as_tensor(w_m)).sum()
     (gt,) = torch.autograd.grad(s, vt)
     np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-10, atol=1e-10 * np.abs(gj).max())
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_card_gather_sum_equals_the_cpu_scatter(order):
+    """_scatter sums element-node rows by index_add_ on the CPU and by the
+    gather-sum through gather_idx on the card (no atomics there): on the
+    same rows the two agree to the last bits of float64 (1e-13)."""
+    m, _, to = _ops_pair(order)
+    E, N = to.tets.shape
+    ye = torch.as_tensor(np.random.default_rng(order).standard_normal((E, 3 * N, 4)))
+    got = tasm._scatter(to, ye).reshape(m.num_vertices, 12)
+    want = tasm._gather_sum(to, ye.reshape(E * N, 12))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13,
+                               atol=1e-13 * float(want.abs().max()))

@@ -21,9 +21,13 @@ from diffsound_torch.audio.oscillator import synth_constant_modes
 from diffsound_torch.experiments import material_sync
 from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
-from diffsound_torch.experiments import morphing, thickness
+from diffsound_torch.acoustics import BEMModel
+from diffsound_torch.experiments import geometry, morphing, thickness
+from diffsound_torch.fem.assembly import FEMOperators
 from diffsound_torch.fem.mesh import cube_tet_mesh, icosphere, write_msh, write_obj
 from diffsound_torch.geometry.dmtet import MarchingTets
+from diffsound_torch.geometry.geometry_task import GeometryTask
+from diffsound_torch.geometry.sdf_mlp import SDFGeometry
 from diffsound_torch.geometry.sdf_host import mesh_signed_distance
 from diffsound_torch.geometry.tasks import MorphingTask, ShapeTaskBase, ThicknessTask
 from diffsound_torch.geometry.warm_eigs import WarmShapeEigensolver
@@ -50,6 +54,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     sources = _port_sources()
     assert len(sources) > 20
+    names = {str(p.relative_to(ROOT)) for p in sources}
+    assert {"diffsound_torch/geometry/sdf_mlp.py", "diffsound_torch/geometry/geometry_task.py",
+            "diffsound_torch/experiments/geometry.py", "diffsound_torch/acoustics/bem.py",
+            "diffsound_torch/fem/transform.py"} <= names
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
         for p in sources for m in _imported_modules(p)
@@ -61,7 +69,9 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", [build_model, DiffSoundObject.__init__, MaterialSyncTask,
                                    fit_gt_oscillator, train_material_real,
                                    ShapeTaskBase.__init__, MarchingTets.__init__,
-                                   WarmShapeEigensolver.__init__, mesh_signed_distance])
+                                   WarmShapeEigensolver.__init__, mesh_signed_distance,
+                                   GeometryTask.__init__, SDFGeometry.__init__,
+                                   FEMOperators.__init__, BEMModel.__init__])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -101,6 +111,35 @@ def test_shape_tasks_raise_without_cuda(monkeypatch, task):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh_signed_distance(np.zeros((2, 3)), *icosphere(0))
     assert task(grid_res=2, scale=1.0, mat="Steel", mode_num=2, device="cpu").dtype == torch.float64
+
+
+def test_geometry_and_leftovers_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GeometryTask(grid_res=2, mode_num=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FEMOperators(cube_tet_mesh(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BEMModel(*icosphere(0), 500.0)
+    assert GeometryTask(grid_res=2, mode_num=2, device="cpu").dtype == torch.float64
+    assert FEMOperators(cube_tet_mesh(1), device="cpu").dtype == torch.float64
+    assert BEMModel(*icosphere(0), 500.0, device="cpu").dtype == torch.float64
+
+
+def test_geometry_cli_raises_without_cuda(tmp_path, monkeypatch):
+    """The geometry CLI runs on the card unless the config says
+    "device": "cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = cube_tet_mesh(2, 0.5)
+    write_msh(str(tmp_path / "a.msh"), mesh.vertices, mesh.tets)
+    write_obj(str(tmp_path / "a_surf.obj"), *icosphere(1, 0.3))
+    cfg = tmp_path / "g.json"
+    cfg.write_text(json.dumps({
+        "init_mesh_dir": str(tmp_path), "mesh_name_list": ["a"], "mode_num_list": [2],
+        "voxel_num_list": [4], "grid_res": 4, "freq_num": 1, "iter": 1,
+        "learning_rate": 1e-4, "out_dir": str(tmp_path / "o")}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        geometry.main(["--config", str(cfg)])
 
 
 @pytest.mark.parametrize("cli", [thickness, morphing])

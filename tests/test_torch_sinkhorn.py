@@ -172,24 +172,36 @@ def test_logsumexp_gradient_holds_at_sinkhorn_magnitudes_in_float32():
 
 @pytest.mark.parametrize("n_fft", [2048, 1024])
 def test_sinkhorn_float32_gap_on_linear_spectrum_points(n_fft):
-    """The geomloss linear-spectrum clouds of seed 11 (features up to 4e2,
-    squared diameter 2e5), rounded to float32 once (chip_smoke.lin_clouds),
-    then the divergence in float32 against float64 on those same inputs:
-    the gate chip_smoke.py holds the card to.  Reduced over the strided
-    transpose of the cost, the self problems' g drifted an ulp from f at
-    the large epsilons and kept it (gap 2.3e-4 at n_fft 1024); over a
-    contiguous copy, f and g stay equal as in the JAX package.  Readings:
-    the port 4.0e-6 / 3.0e-6 at n_fft 2048 / 1024, the JAX package
-    (jitted) 2.0e-7 / 3.5e-8."""
+    """The geomloss linear-spectrum clouds (features up to 4e2, squared
+    diameter 2e5), rounded to float32 once (chip_smoke.lin_clouds), then the
+    divergence in float32 against float64 on those same inputs.  The gate is
+    computed here from the JAX package: 4 times the larger of its gap at
+    seed 11 and its median gap over seeds 11-20 (a seed's gap is one draw of
+    float32's rounding of potentials near 3e5; JAX's spans 8e-8 to 6.7e-6),
+    and chip_smoke.py holds the card to the same gates.  Readings at seed 11
+    and n_fft 2048 / 1024: the port 1.88e-6 / 1.53e-6 with its exp-sums in
+    float64, 3.96e-6 / 3.03e-6 summed in float32 (above the gates 2.71e-6 /
+    2.44e-6), 2.3e-4 at 1024 reduced over a strided transpose of the cost
+    (the self problems' g drifted an ulp from f); JAX 2.0e-7 / 3.5e-8."""
     import chip_smoke
 
-    x, y = chip_smoke.lin_clouds(11, n_fft)
+    jitted = jax.jit(jsk.sinkhorn_divergence)
+    jax_gaps = {}
+    for seed in chip_smoke.GEOMLOSS_SEEDS:
+        x, y = chip_smoke.lin_clouds(seed, n_fft)
+        xj, yj = jnp.asarray(x[0].numpy()), jnp.asarray(y[0].numpy())
+        jax_gaps[seed] = abs(float(jitted(xj, yj))
+                             / float(jitted(xj.astype(jnp.float64), yj.astype(jnp.float64))) - 1)
+    seed = chip_smoke.GEOMLOSS_SEEDS[0]
+    gate = chip_smoke.sinkhorn_f32_gate(n_fft, seed, jax_gaps)
+    # the card's gates are JAX's readings here, stored
+    assert chip_smoke.sinkhorn_f32_gate(n_fft, seed) == pytest.approx(gate, rel=0.05)
+    x, y = chip_smoke.lin_clouds(seed, n_fft)
     v32 = tsk.sinkhorn_divergence(x, y).item()
     v64 = tsk.sinkhorn_divergence(x.double(), y.double()).item()
-    j32 = float(jax.jit(jsk.sinkhorn_divergence)(jnp.asarray(x[0].numpy()), jnp.asarray(y[0].numpy())))
-    print(f"float32 Sinkhorn divergence gap at n_fft {n_fft}: port {abs(v32 / v64 - 1):.3e}, "
-          f"JAX {abs(j32 / v64 - 1):.3e}")
-    assert abs(v32 / v64 - 1) <= chip_smoke.SINKHORN_F32_GAP
+    print(f"float32 Sinkhorn divergence gap at n_fft {n_fft}, seed {seed}: port "
+          f"{abs(v32 / v64 - 1):.3e}, JAX {jax_gaps[seed]:.3e}, gate {gate:.3e}")
+    assert abs(v32 / v64 - 1) <= gate
 
 
 def test_geomloss_log_points_are_float64_like_jax():
