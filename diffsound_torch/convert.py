@@ -37,18 +37,46 @@ def osc_params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
     return params_from_jax(flat, device, dtype)
 
 
-def sdf_params_from_jax(mlp: dict, deform, device="cpu", dtype=torch.float64) -> dict:
-    """JAX `SDFGeometry` params -> the port's: flax's
-    {"params": {"Dense_i": {"kernel" (in, out), "bias"}}} (numpy leaves) and
-    `deform` (V, 3) -> {"mlp": {"layers.i.weight" (out, in), "layers.i.bias"},
-    "deform"} as leaf tensors on `device`."""
-    as_t = lambda x: torch.tensor(np.array(x), dtype=dtype, device=device)
+def _dense_from_flax(mlp: dict, as_t) -> dict:
+    """flax's {"params": {"Dense_i": {"kernel" (in, out), "bias"}}} -> an
+    `SDFNet` parameter dict {"layers.i.weight" (out, in), "layers.i.bias"}."""
     dense = mlp["params"]
     out = {}
     for i in range(len(dense)):
         out[f"layers.{i}.weight"] = as_t(np.asarray(dense[f"Dense_{i}"]["kernel"]).T)
         out[f"layers.{i}.bias"] = as_t(dense[f"Dense_{i}"]["bias"])
-    return {"mlp": out, "deform": as_t(deform)}
+    return out
+
+
+def sdf_params_from_jax(mlp: dict, deform, device="cpu", dtype=torch.float64) -> dict:
+    """JAX `SDFGeometry` params -> the port's: flax's MLP params (numpy
+    leaves) and `deform` (V, 3) -> {"mlp": {"layers.i.weight" (out, in),
+    "layers.i.bias"}, "deform"} as leaf tensors on `device`."""
+    as_t = lambda x: torch.tensor(np.array(x), dtype=dtype, device=device)
+    return {"mlp": _dense_from_flax(mlp, as_t), "deform": as_t(deform)}
+
+
+def joint_params_from_jax(params: dict, device="cpu") -> dict:
+    """JAX `JointImageAudioTask` params (numpy leaves) -> the port's, for
+    whichever of the groups are present, in the JAX package's dtypes: "geo"
+    ({"front", "back"}: flax MLPs in float32; "deform" in float64), "tex" (a
+    list of {"w" (in, out), "b"}) and "light" ({"base"}) in float32."""
+    out = {}
+    f32 = lambda x: torch.tensor(np.array(x), dtype=torch.float32, device=device)
+    if "geo" in params:
+        g = params["geo"]
+        out["geo"] = {"front": _dense_from_flax(g["front"], f32),
+                      "back": _dense_from_flax(g["back"], f32),
+                      "deform": torch.tensor(np.array(g["deform"]), dtype=torch.float64,
+                                             device=device)}
+    if "tex" in params:
+        out["tex"] = {}
+        for i, layer in enumerate(params["tex"]):
+            out["tex"][f"layers.{i}.weight"] = f32(np.asarray(layer["w"]).T)
+            out["tex"][f"layers.{i}.bias"] = f32(layer["b"])
+    if "light" in params:
+        out["light"] = {"base": f32(params["light"]["base"])}
+    return out
 
 
 def eigen_state_from_numpy(eigenvalues, eigenvectors, dtype, device="cpu",

@@ -127,6 +127,16 @@ def build_gather_transpose(tets: np.ndarray, num_vertices: int) -> np.ndarray:
     return idx
 
 
+def padded_gather_transpose(elements, num_real: int, num_vertices: int) -> np.ndarray:
+    """`build_gather_transpose` of a bucket-padded element array (E_pad, N),
+    built from its first `num_real` rows only (padding would inflate vertex
+    0's valence), with the dummy index pointing at the zero row after all
+    N * E_pad rows."""
+    elements = np.asarray(elements)
+    idx = build_gather_transpose(elements[:num_real], num_vertices)
+    return np.where(idx == elements.shape[1] * num_real, elements.size, idx)
+
+
 def build_element_ops(
     vertices: torch.Tensor,
     tets,
@@ -205,14 +215,14 @@ def _gather(ops: ElementOps, x: torch.Tensor) -> torch.Tensor:
     return xe.reshape(E, 3 * N, k)
 
 
-def _gather_sum(ops: ElementOps, flat: torch.Tensor) -> torch.Tensor:
-    """(E*N, c) element-node rows -> (V, c): each vertex's rows summed
-    through gather_idx, with no atomics."""
+def gather_sum(flat: torch.Tensor, gather_idx: torch.Tensor) -> torch.Tensor:
+    """(R, c) rows -> (V, c): each vertex's rows summed through gather_idx
+    (V, D), whose dummy index R points at a zero row; no atomics."""
     rows = torch.cat([flat, flat.new_zeros(1, flat.shape[1])], dim=0)
     # index_select + sum is rows[gather_idx].sum(1) bit for bit, and faster
     # than advanced indexing
-    V, D = ops.gather_idx.shape
-    return rows.index_select(0, ops.gather_idx.reshape(-1)).reshape(V, D, -1).sum(dim=1)
+    V, D = gather_idx.shape
+    return rows.index_select(0, gather_idx.reshape(-1)).reshape(V, D, -1).sum(dim=1)
 
 
 def _scatter(ops, ye: torch.Tensor) -> torch.Tensor:
@@ -226,7 +236,7 @@ def _scatter(ops, ye: torch.Tensor) -> torch.Tensor:
     N = threeN // 3
     flat = ye.reshape(E * N, 3 * k)
     if ops.gather_idx is not None and ye.is_cuda:
-        out = _gather_sum(ops, flat)
+        out = gather_sum(flat, ops.gather_idx)
     else:
         out = torch.zeros(ops.num_vertices, 3 * k, dtype=ye.dtype, device=ye.device)
         out.index_add_(0, ops.tets.reshape(-1), flat)

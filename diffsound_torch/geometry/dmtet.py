@@ -1,7 +1,6 @@
 """Differentiable marching tetrahedra emitting a *tetrahedral* mesh.
 
-Counterpart of `diffsound_tpu/geometry/dmtet.py` (`MarchingOutput`,
-`MarchingTets.__call__`, `compact`, `compact_triangles`):
+Counterpart of `diffsound_tpu/geometry/dmtet.py`:
 
   * the background grid's unique-edge structure is precomputed once on the
     host, so the device pass has no dynamic shapes: every grid edge gets an
@@ -12,7 +11,9 @@ Counterpart of `diffsound_tpu/geometry/dmtet.py` (`MarchingOutput`,
     or of sdf - thickness on edges with both ends inside);
   * host-side `compact()` extracts the concrete submesh, bucket-padded, for
     the eigensolver; the differentiable vertices are re-gathered through
-    its keep-index (`MarchingTets.vertices`).
+    its keep-index (`MarchingTets.vertices`);
+  * the render path's `compact_triangles_padded`, `map_uv` and the SDF
+    sign regularizer `sdf_reg_loss`.
 
 The interpolation weight is clipped as `minimum(maximum(x, 0), 1)`, whose
 derivative at a bound is 1/2 in reverse and forward mode alike, as JAX's
@@ -113,9 +114,12 @@ class MarchingTets:
         tris, tri_mask = expand(self._tri_table, self._num_tris_t, MAX_TRIS)
         return MarchingOutput(all_verts, sub, sub_mask, tris, tri_mask)
 
-    def vertices(self, pos, sdf, thickness, rows) -> torch.Tensor:
+    def vertices(self, pos, sdf, thickness, rows=None) -> torch.Tensor:
         """`__call__(pos, sdf, thickness).all_verts[rows]`, computing only
-        those rows (the same arithmetic, so the same values)."""
+        those rows (the same arithmetic, so the same values); every row when
+        `rows` is None."""
+        if rows is None:
+            return torch.cat([pos, self._edge_points(pos, sdf, thickness, self._edges)], dim=0)
         rows = torch.as_tensor(rows, device=pos.device)
         V = self.num_grid_verts
         edges = self._edges[torch.clamp(rows - V, min=0)]
@@ -194,3 +198,57 @@ class MarchingTets:
             used, inv = np.unique(tris.reshape(-1), return_inverse=True)
             verts = out.all_verts.detach()[torch.as_tensor(used, device=out.all_verts.device)]
         return verts.to(torch.float64).cpu().numpy(), inv.reshape(-1, 3)
+
+    @staticmethod
+    def compact_triangles_padded(out: MarchingOutput, tri_bucket: int = 2048):
+        """Surface triangles for the render path (host): triangles keep their
+        global vertex ids into `all_verts`, padded to a multiple of
+        `tri_bucket` with masked triangles (0, 0, 0).
+
+        Returns dict: tris (F_pad, 3), tri_mask (F_pad,), face_gidx (F_pad,)
+        each triangle's slot in surf_tris (drives the UV atlas), num_tris."""
+        mask = out.tri_mask.cpu().numpy()
+        slots = np.nonzero(mask)[0]
+        tris = out.surf_tris[torch.as_tensor(slots, device=out.surf_tris.device)].cpu().numpy()
+        n = len(slots)
+        pad = ((n + tri_bucket - 1) // tri_bucket) * tri_bucket
+        tris_p = np.zeros((pad, 3), np.int64)
+        tris_p[:n] = tris
+        gidx = np.zeros(pad, np.int64)
+        gidx[:n] = slots
+        m = np.zeros(pad, bool)
+        m[:n] = True
+        return {"tris": tris_p, "tri_mask": m, "face_gidx": gidx, "num_tris": n}
+
+
+def map_uv(face_gidx: np.ndarray, total_slots: int):
+    """Per-face UV atlas of a marching-tets surface (host): each background
+    tet owns one of N x N tiles (N = ceil(sqrt(total_slots / 2))), its (up to)
+    two triangles split the tile's corner quad.  Returns (v_tex (F*3, 2)
+    float32, t_tex_idx (F, 3) int32), per-face texcoords."""
+    face_gidx = np.asarray(face_gidx)
+    N = int(np.ceil(np.sqrt((total_slots + 1) // MAX_TRIS)))
+    tet_idx, tri_idx = face_gidx // MAX_TRIS, face_gidx % MAX_TRIS
+    tile = tet_idx % (N * N)
+    tx = (tile % N).astype(np.float64) / N
+    ty = (tile // N).astype(np.float64) / N
+    pad = 0.9 / N
+    corners = np.stack([np.stack([tx, ty], -1), np.stack([tx + pad, ty], -1),
+                        np.stack([tx + pad, ty + pad], -1), np.stack([tx, ty + pad], -1)],
+                       axis=1)  # (F, 4, 2)
+    c1, c2 = np.clip(tri_idx + 1, 0, 3), np.clip(tri_idx + 2, 0, 3)
+    F = len(face_gidx)
+    ar = np.arange(F)
+    v_tex = np.stack([corners[ar, 0], corners[ar, c1], corners[ar, c2]], axis=1).reshape(F * 3, 2)
+    return v_tex.astype(np.float32), np.arange(F * 3, dtype=np.int32).reshape(F, 3)
+
+
+def sdf_reg_loss(sdf: torch.Tensor, unique_edges: torch.Tensor):
+    """Sign-agreement BCE over the grid edges whose SDF changes sign."""
+    s0, s1 = sdf[unique_edges[:, 0]], sdf[unique_edges[:, 1]]
+    crossing = torch.sign(s0) != torch.sign(s1)
+    sp = torch.nn.functional.softplus
+    bce = sp(-s0) * (s1 > 0) + sp(s0) * (s1 <= 0)
+    bce = bce + sp(-s1) * (s0 > 0) + sp(s1) * (s0 <= 0)
+    denom = torch.clamp(crossing.sum(), min=1)
+    return torch.where(crossing, bce, torch.zeros_like(bce)).sum() / denom

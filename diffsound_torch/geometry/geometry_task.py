@@ -36,6 +36,7 @@ from .. import default_dtype, resolve_device
 from ..fem import assembly
 from ..fem.material import Material, MatSet, lame_params
 from ..solvers.diff_eigs import ritz_refined_eigenvalues
+from ..utils.tree import detach_tree, fresh_leaves, tree_leaves, tree_unflatten
 from .dmtet import MarchingTets
 from .grid import load_background_grid
 from .sdf_mlp import SDFGeometry, cast_params
@@ -44,19 +45,6 @@ from .warm_eigs import WarmShapeEigensolver, padded_gather_transpose
 
 # the failures of an eigensolve on a degenerate mesh that `optimize` skips
 SOLVER_FAILURES = (spla.ArpackNoConvergence, spla.ArpackError, torch.linalg.LinAlgError)
-
-
-def _detach(params):
-    return {"mlp": {k: v.detach() for k, v in params["mlp"].items()},
-            "deform": params["deform"].detach()}
-
-
-def _leaves(params):
-    """(a copy of params whose tensors are fresh leaves requiring grad, the
-    list of those leaves: the MLP's in order, then deform)."""
-    mlp = {k: v.detach().clone().requires_grad_(True) for k, v in params["mlp"].items()}
-    deform = params["deform"].detach().clone().requires_grad_(True)
-    return {"mlp": mlp, "deform": deform}, [*mlp.values(), deform]
 
 
 class _Clock:
@@ -146,7 +134,7 @@ class GeometryTask:
         """Full-batch Adam on the template hinge; stops after the first step
         whose loss (before its update) is exactly 0."""
         q, sd = self._tensor(query_points), self._tensor(signed_distance)
-        p, leaves = _leaves(params)
+        p, leaves = fresh_leaves(params)
         opt = torch.optim.Adam(leaves, lr=lr)
         for i in range(iters):
             opt.zero_grad(set_to_none=True)
@@ -158,7 +146,7 @@ class GeometryTask:
                 print(f"  sdf pretrain {i}: {loss:.6f}")
             if loss == 0.0:
                 break
-        return _detach(p)
+        return detach_tree(p)
 
     # -- marching + eigensolve ---------------------------------------------
 
@@ -207,12 +195,10 @@ class GeometryTask:
     def loss_grad(self, params, comp, U, target, q, sd, margin=0.0):
         """(loss, (template, eig_loss), grads as a params-shaped dict): one
         reverse-mode pass of `_loss_core`."""
-        p, leaves = _leaves(params)
+        p, leaves = fresh_leaves(params)
         loss, aux = self._loss_core(p, comp, U, target, q, sd, margin)
         g = torch.autograd.grad(loss, leaves)
-        names = list(p["mlp"])
-        return loss.detach(), tuple(a.detach() for a in aux), {
-            "mlp": dict(zip(names, g[:-1])), "deform": g[-1]}
+        return loss.detach(), tuple(a.detach() for a in aux), tree_unflatten(p, list(g))
 
     def step_loss_grad(self, params, target, q, sd, margin=0.0):
         """One iteration: the detached float64 march and its compaction, the
@@ -243,7 +229,7 @@ class GeometryTask:
                 mu, lame_l = self._lame()
                 lam, U = self.warm.solve(
                     out, comp, float(mu), float(lame_l),
-                    host_solve=lambda: self._eigensolve_host(out, comp, k),
+                    host_solve=lambda n: self._eigensolve_host(out, comp, n),
                 )
         clock.mark()
         loss, aux, g = self.loss_grad(params, comp, U, target, q, sd, margin)
@@ -275,7 +261,7 @@ class GeometryTask:
         t_start = time.perf_counter()
         q, sd = self._tensor(query_points), self._tensor(signed_distance)
         tgt = np.asarray(target, np.float64)
-        p, leaves = _leaves(params)
+        p, leaves = fresh_leaves(params)
         opt = torch.optim.Adam(leaves, lr=lr)
         sched = torch.optim.lr_scheduler.StepLR(opt, step_size=100, gamma=0.8)
         best = {"loss": math.inf, "mesh": None}
@@ -289,7 +275,7 @@ class GeometryTask:
                 print(f"iter {it}: eigensolve failed ({reason}); skipping step", flush=True)
                 history.append({"iter": it, "skipped": reason})
                 continue
-            for leaf, gl in zip(leaves, [*g["mlp"].values(), g["deform"]]):
+            for leaf, gl in zip(leaves, tree_leaves(g)):
                 leaf.grad = gl
             opt.step()
             sched.step()
@@ -317,4 +303,4 @@ class GeometryTask:
                 print(f"iter {it}: time budget {time_budget_s:.0f}s reached after "
                       f"{it + 1}/{iters} iters; stopping", flush=True)
                 break
-        return _detach(p), best, history
+        return detach_tree(p), best, history

@@ -119,11 +119,12 @@ class ShapeTaskBase:
         coefficient (thickness coef / morphing coef)."""
         return self._march(*self._coef_sdf(c))
 
-    def _eigensolve_host(self, out, comp):
-        """ARPACK on the compacted geometry in float64 on the host; returns
-        padded (lam, U) as numpy."""
-        return eigensolve_host(out, comp, *self._lame(), self.mode_num + self.extra_modes,
-                               self.sigma)
+    def _eigensolve_host(self, out, comp, k=None):
+        """ARPACK (k modes, by default the task's with the rigid block) on the
+        compacted geometry in float64 on the host; returns padded (lam, U)
+        as numpy."""
+        k = self.mode_num + self.extra_modes if k is None else k
+        return eigensolve_host(out, comp, *self._lame(), k, self.sigma)
 
     def _eigensolve(self, out, comp):
         """Training-loop eigensolve: the warm device path when enabled (cold
@@ -133,7 +134,7 @@ class ShapeTaskBase:
         mu, lam = self._lame()
         return self.warm.solve(
             out, comp, float(mu), float(lam),
-            host_solve=lambda: self._eigensolve_host(out, comp),
+            host_solve=lambda n: self._eigensolve_host(out, comp, n),
         )
 
     # -- scalar-coefficient Gauss-Newton ------------------------------------

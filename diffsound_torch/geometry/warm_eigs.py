@@ -20,13 +20,15 @@ the device between iterations instead:
     there;
   * cold starts (first iteration, low slot overlap after a topology jump, a
     diverged residual, an explicit re-anchor or the `reanchor_every`
-    cadence) run host ARPACK and push its basis once;
+    cadence) run host ARPACK for the k modes and the guard columns and push
+    its basis once;
   * `map_only` maps the stored basis across a remesh with no solve.
 
 The JAX package's per-bucket jit caches become plain calls.  The storage is
-float32 whatever the working dtype, as the JAX package's is.  The guard
-columns' seed noise comes from a seeded `torch.Generator`, so the warm
-output is held against host ARPACK, not against JAX's warm output.
+float32 whatever the working dtype, as the JAX package's is.  The host
+anchors solve for the guard columns too (the JAX package seeds them with
+noise), so the warm output is held against host ARPACK, not against JAX's
+warm output.
 """
 
 from __future__ import annotations
@@ -42,12 +44,8 @@ from ..solvers.lobpcg import lobpcg
 
 
 def padded_gather_transpose(comp) -> np.ndarray:
-    """Scatter->gather transpose of a bucket-padded compact mesh, built from
-    its real tets only (the padding would inflate vertex 0's valence), with
-    the dummy index pointing at the zero row after all 4 * Tc_pad rows."""
-    gidx = assembly.build_gather_transpose(comp["tets"][: comp["num_tets"]], len(comp["keep_idx"]))
-    tpad = comp["tets"].shape[0]
-    return np.where(gidx == 4 * comp["num_tets"], 4 * tpad, gidx)
+    """The scatter->gather transpose of a bucket-padded compact mesh."""
+    return assembly.padded_gather_transpose(comp["tets"], comp["num_tets"], len(comp["keep_idx"]))
 
 
 class WarmShapeEigensolver:
@@ -58,12 +56,14 @@ class WarmShapeEigensolver:
         dtype=torch.float32,
         device="cuda",
         reanchor_every: int = 0,
+        max_iters: int = 240,
     ):
         """num_global_slots: V + Eg of the background grid (rows of
         MarchingOutput.all_verts).  k: modes incl. the rigid block.
         dtype: the solve's working dtype (the stored basis is float32).
         reanchor_every: force a host cold solve after that many warm solves
-        in a row (0: never)."""
+        in a row (0: never).  max_iters: LOBPCG iterations of a warm round
+        (two rounds before a host re-anchor)."""
         self.num_global_slots = num_global_slots
         self.k = k
         # guard columns absorb the slowly separating directions just above
@@ -72,7 +72,7 @@ class WarmShapeEigensolver:
         self.kg = k + self.guards
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.max_iters = 240
+        self.max_iters = max_iters
         # Ritz-value error is O(residual^2): a 1e-2 residual basis gives
         # 1.5e-4 relative eigenvalue error on the grid-64 shell; f64
         # converges comfortably at 1e-4
@@ -119,12 +119,11 @@ class WarmShapeEigensolver:
         return torch.as_tensor(keep, device=self.device)
 
     def store_host(self, comp, U):
-        """Push a host basis (cold solves) into the device storage."""
+        """Push a host basis of k + guards modes (cold solves) into the device
+        storage."""
         self._ensure_storage()
         vpad = len(comp["keep_idx"])
         U = torch.as_tensor(np.asarray(U), dtype=torch.float32, device=self.device)
-        if U.shape[1] < self.kg:  # host bases are k wide; zero-pad guards
-            U = torch.cat([U, U.new_zeros((U.shape[0], self.kg - U.shape[1]))], dim=1)
         self.U_global[self._keep_store(comp)] = U.reshape(vpad, 3, self.kg)
         self.seen[np.asarray(comp["keep_idx"])[: comp["num_verts"]]] = True
 
@@ -172,11 +171,6 @@ class WarmShapeEigensolver:
         vpad = keep_gather.shape[0]
         x0 = self.U_global[keep_gather].reshape(3 * vpad, self.kg).to(self.dtype)
         x0 = x0 * dof_mask[:, None]
-        # dead guard columns (zero after a host anchor) are seeded with noise
-        gen = torch.Generator(device=self.device).manual_seed(1)
-        noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype, device=self.device)
-        norms = torch.linalg.vector_norm(x0, dim=0)
-        x0 = torch.where(norms[None, :] > 0, x0, noise * dof_mask[:, None])
         with torch.no_grad():
             ops = assembly.build_element_ops(
                 verts_c, tets_c, 1, dtype=self.dtype, tet_mask=tet_mask, gather_idx=gidx
@@ -224,8 +218,15 @@ class WarmShapeEigensolver:
     # -- public entry --------------------------------------------------------
 
     def _cold(self, out, comp, host_solve, mode, iterations=0):
-        vals, U = host_solve()
+        """A host solve of the k wanted modes and the guards, stored as the
+        basis; the caller gets the first k.  Guard columns that start as
+        converged modes, not noise: past a near-degenerate cluster at k (a
+        sphere's) the wanted block's convergence rests on them, and noise
+        guards left the joint task's first warm solve after each anchor
+        short of the acceptance residual after two rounds."""
+        vals, U = host_solve(self.kg)
         self.store_host(comp, U)
+        vals, U = vals[: self.k], U[:, : self.k]
         self.mark_positions(out, comp)
         self.warm_count = 0
         self.total_cold += 1
@@ -266,12 +267,14 @@ class WarmShapeEigensolver:
         comp,
         mu: float,
         lam: float,
-        host_solve: Callable[[], Tuple[np.ndarray, np.ndarray]],
+        host_solve: Callable[[int], Tuple[np.ndarray, np.ndarray]],
     ):
         """Eigensolve the compacted geometry: warm on the device when the
         stored basis covers it, host ARPACK otherwise.  Returns (vals (k,)
         numpy, U (3*vpad, k)): a device tensor after a warm solve, the host
-        solver's numpy array after a cold one."""
+        solver's numpy array after a cold one.  host_solve(n): the n lowest
+        modes by a host solve, (vals (n,), U (3*vpad, n)); asked for k +
+        guards."""
         if self.U_global is None or self._anchor_requested or (
                 self.reanchor_every and self.warm_count >= self.reanchor_every) or (
                 self.overlap(comp) < self.min_overlap):

@@ -30,6 +30,10 @@ from typing import Callable, Optional
 
 import torch
 
+# converged guard columns sit within about 2x of the wanted block's largest
+# Ritz value; the residual scale counts guards up to this multiple of it
+GUARD_SCALE_CAP = 4.0
+
 
 def _chol_inv_t(G: torch.Tensor) -> torch.Tensor:
     """inv(chol(G)).T of a small SPD matrix."""
@@ -162,9 +166,13 @@ def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
         # Relative residuals, computed before the step and reported at exit.
         # The scale includes the block's largest Ritz value so near-null
         # (rigid-body) modes, where ||A x|| itself is roundoff, still count
-        # as converged.
+        # as converged; capped at GUARD_SCALE_CAP times the wanted block's
+        # largest: a noise-seeded guard's Ritz value can sit 1e7 x above the
+        # block (a marching-tets mesh's slivers) and would pass every wanted
+        # column at the first check.
         rn = torch.linalg.vector_norm(R, dim=0)
-        scale = (theta.abs() + theta.abs().max()) * torch.linalg.vector_norm(
+        top = torch.minimum(theta.abs().max(), GUARD_SCALE_CAP * theta[:nw].abs().max())
+        scale = (theta.abs() + top) * torch.linalg.vector_norm(
             BX, dim=0
         ) + torch.linalg.vector_norm(AX, dim=0)
         rel = rn / torch.clamp(scale, min=tiny)

@@ -1,4 +1,5 @@
-"""Spectrogram comparison figures, written as PNG with numpy and zlib only.
+"""Spectrogram comparison figures and render images, written as PNG with
+numpy and zlib only.
 
 Counterpart of `diffsound_tpu/utils/visualize.py::save_spec_figure`, which
 draws the same side-by-side image with matplotlib; the port needs no
@@ -22,10 +23,12 @@ def spec_image(spec_gt, spec_pred) -> np.ndarray:
     return np.round(scaled[::-1] * 255.0).astype(np.uint8)
 
 
-def write_png(path: str, gray: np.ndarray):
-    """8-bit grayscale PNG of a (H, W) uint8 array."""
-    h, w = gray.shape
-    raw = b"".join(b"\x00" + gray[r].tobytes() for r in range(h))
+def write_png(path: str, img: np.ndarray):
+    """8-bit PNG of a (H, W) grayscale or (H, W, 3) RGB uint8 array."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    color = 2 if img.ndim == 3 else 0  # PNG colour type: RGB or grayscale
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
@@ -33,7 +36,7 @@ def write_png(path: str, gray: np.ndarray):
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw)))
         f.write(chunk(b"IEND", b""))
 

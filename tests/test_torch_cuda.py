@@ -1,7 +1,8 @@
 """The port on the card: the synthesis kernels, forward and backward, against
 their plain versions (also at the material_real GT bank's tables), their
 autograd function and dispatch, short material_sync and material_real
-runs on CUDA, the shape march and the geometry loss-gradient pass.
+runs on CUDA, the shape march, the geometry loss-gradient pass and the
+joint task's loss-gradient pass.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
@@ -294,3 +295,63 @@ def test_geometry_loss_gradient_pass_on_cuda(cuda_device):
         assert np.isfinite(got[2].numpy()).all() and np.isfinite(got[3].numpy()).all()
         gaps = chip_smoke.geometry_gaps(got, ref, n_def)
         assert all(g <= gate for g, gate in zip(gaps, gates)), (dt, gaps)
+
+
+@pytest.mark.cuda
+def test_joint_step_on_cuda_matches_cpu(cuda_device):
+    """The joint task's loss-gradient pass on the card against the CPU's at
+    one CPU march's compaction, padded surface, host basis and jitter noise
+    (grid 10, hidden 32, light_res 8, 4 + 6 modes, 32^2), the task in
+    float64 on both devices (the render float32 on both): the audio loss
+    within 1e-9, the loss and the image loss within 1e-4, each parameter
+    group's gradient within 1e-2 in relative norm (float32 renders whose
+    products round in another order), at most 2 pixels in 1,024 whose
+    winning triangle differs; then the card's own step in float32 (warm
+    solver, first solve cold) finite."""
+    import chip_smoke
+    from diffsound_torch.experiments.joint import look_at_mvp
+    from diffsound_torch.geometry.dmtet import MarchingTets
+    from diffsound_torch.geometry.joint_task import JointImageAudioTask
+    from diffsound_torch.utils.tree import tree_leaves, tree_unflatten
+    from diffsound_torch.render import rasterize
+    from diffsound_torch.render.util import xfm_points
+
+    kw = dict(grid_res=10, mode_num=4, light_res=8, hidden_dim=32, tets_dir="/nonexistent",
+              dtype=torch.float64)
+    cpu = JointImageAudioTask(device="cpu", **kw)
+    card = JointImageAudioTask(device=cuda_device, **kw)
+    p = cpu.init_params(torch.Generator().manual_seed(0))
+    p["geo"] = cpu.geo.pretrain_regression(
+        p["geo"], cpu.grid_verts, 0.35 - np.linalg.norm(cpu.grid_verts, axis=-1), iters=300,
+        lr=3e-4)
+    out = cpu._march_host(p)
+    comp = MarchingTets.compact(out)
+    tric, v_tex, t_tex_idx, _ = cpu.surface(out, 512)
+    lam, U = cpu._eigensolve_host(out, comp, 10)
+    campos = np.array([0.4, 0.5, 2.7])
+    mvp = look_at_mvp(campos)
+    img = np.zeros((32, 32, 4), np.float32)
+    img[9:23, 7:25] = (0.6, 0.5, 0.4, 1.0)
+    noise = torch.randn((32, 32, 3), generator=torch.Generator().manual_seed(1))
+    args = (comp, tric, v_tex, t_tex_idx, lam, U, lam[6:] * 1.1, img, mvp, campos, 0.1)
+    ref = cpu.loss_grad(p, *args, noise, 0.5, 0.02, (32, 32))
+    pc = tree_unflatten(p, [x.to(cuda_device) for x in tree_leaves(p)])
+    got = card.loss_grad(pc, *args, noise.to(cuda_device), 0.5, 0.02, (32, 32),
+                         tri_gidx=card._tri_gather(tric))
+    rel = lambda a, b: abs(a.item() / b.item() - 1)
+    assert rel(got[1][2], ref[1][2]) <= 1e-9
+    assert rel(got[0], ref[0]) <= 1e-4 and rel(got[1][0], ref[1][0]) <= 1e-4
+    for name in chip_smoke.JOINT_GROUPS:
+        a, b = chip_smoke.joint_group(got[2], name), chip_smoke.joint_group(ref[2], name)
+        assert torch.isfinite(a).all() and float((a - b).norm() / b.norm()) <= 1e-2, name
+    v32, m32 = out.all_verts.float(), torch.as_tensor(mvp, dtype=torch.float32)
+    ids = [rasterize.rasterize(xfm_points(v32.to(d), m32.to(d)),
+                               torch.as_tensor(tric["tris"], device=d), (32, 32),
+                               tri_mask=torch.as_tensor(tric["tri_mask"], device=d),
+                               with_soft=False)[0].tri_id.cpu() for d in (cuda_device, "cpu")]
+    assert int((ids[0] != ids[1]).sum()) <= 2
+    f32 = JointImageAudioTask(device=cuda_device, **{**kw, "dtype": torch.float32})
+    loss, aux, g, *_ = f32.step_loss_grad(pc, lam[6:] * 1.1, img, mvp, campos, 0.1,
+                                          noise.to(cuda_device), 0.5, resolution=(32, 32),
+                                          tri_bucket=512)
+    assert torch.isfinite(loss) and all(torch.isfinite(x).all() for x in tree_leaves(g))

@@ -1,5 +1,5 @@
-"""Guards of the PyTorch port: it never imports JAX, it never runs on the CPU
-unless asked, its CUDA synthesis never falls back to the plain version, and
+"""Guards of the PyTorch port: it never imports JAX (nor flax, optax,
+imageio or the JAX package), it never runs on the CPU unless asked, its CUDA synthesis never falls back to the plain version, and
 its flagship material pairs are the JAX package's draw."""
 
 import ast
@@ -22,21 +22,26 @@ from diffsound_torch.experiments import material_sync
 from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
 from diffsound_torch.acoustics import BEMModel
-from diffsound_torch.experiments import geometry, morphing, thickness
+from diffsound_torch.experiments import geometry, joint, morphing, thickness
 from diffsound_torch.fem.assembly import FEMOperators
 from diffsound_torch.fem.mesh import cube_tet_mesh, icosphere, write_msh, write_obj
+from diffsound_torch.geometry.dlmesh import DLMesh
 from diffsound_torch.geometry.dmtet import MarchingTets
 from diffsound_torch.geometry.geometry_task import GeometryTask
+from diffsound_torch.geometry.joint_task import JointImageAudioTask, SplitSDFGeometry
 from diffsound_torch.geometry.sdf_mlp import SDFGeometry
 from diffsound_torch.geometry.sdf_host import mesh_signed_distance
 from diffsound_torch.geometry.tasks import MorphingTask, ShapeTaskBase, ThicknessTask
 from diffsound_torch.geometry.warm_eigs import WarmShapeEigensolver
 from diffsound_torch.models.sound_obj import DiffSoundObject, build_model
+from diffsound_torch.render.light import EnvironmentLight
+from diffsound_torch.render.mesh import Mesh
+from diffsound_torch.render.mlptexture import MLPTexture3D
 
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffsound_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "imageio", "diffsound_tpu")
 
 
 def _port_sources():
@@ -57,7 +62,9 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(ROOT)) for p in sources}
     assert {"diffsound_torch/geometry/sdf_mlp.py", "diffsound_torch/geometry/geometry_task.py",
             "diffsound_torch/experiments/geometry.py", "diffsound_torch/acoustics/bem.py",
-            "diffsound_torch/fem/transform.py"} <= names
+            "diffsound_torch/fem/transform.py", "diffsound_torch/render/rasterize.py",
+            "diffsound_torch/render/light.py", "diffsound_torch/geometry/joint_task.py",
+            "diffsound_torch/geometry/dlmesh.py", "diffsound_torch/experiments/joint.py"} <= names
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
         for p in sources for m in _imported_modules(p)
@@ -71,7 +78,9 @@ def test_port_imports_no_jax():
                                    ShapeTaskBase.__init__, MarchingTets.__init__,
                                    WarmShapeEigensolver.__init__, mesh_signed_distance,
                                    GeometryTask.__init__, SDFGeometry.__init__,
-                                   FEMOperators.__init__, BEMModel.__init__])
+                                   FEMOperators.__init__, BEMModel.__init__,
+                                   JointImageAudioTask.__init__, SplitSDFGeometry.__init__,
+                                   DLMesh.__init__])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -140,6 +149,26 @@ def test_geometry_cli_raises_without_cuda(tmp_path, monkeypatch):
         "learning_rate": 1e-4, "out_dir": str(tmp_path / "o")}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         geometry.main(["--config", str(cfg)])
+
+
+def test_joint_task_dlmesh_and_joint_cli_raise_without_cuda(tmp_path, monkeypatch):
+    """The joint task, DLMesh and the joint CLI run on the card unless asked
+    for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        JointImageAudioTask(grid_res=2, mode_num=2, hidden_dim=4, light_res=8)
+    v, f = icosphere(0, 0.5)
+    base = Mesh(v_pos=torch.as_tensor(v, dtype=torch.float32), t_pos_idx=torch.as_tensor(f))
+    material = {"kd_ks_normal": MLPTexture3D((np.full(3, -1.0), np.full(3, 1.0))), "bsdf": "pbr"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DLMesh(base, EnvironmentLight(16), material)
+    cfg = ["--config", "configs/joint_train.json", "--grid_res", "2", "--resolution", "8",
+           "--out_dir", str(tmp_path / "o"), "--iter", "1"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        joint.main(cfg)
+    task = JointImageAudioTask(grid_res=2, mode_num=2, hidden_dim=4, light_res=8, device="cpu")
+    assert task.dtype == torch.float32 and task.warm.dtype == torch.float64
+    assert DLMesh(base, EnvironmentLight(16), material, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("cli", [thickness, morphing])

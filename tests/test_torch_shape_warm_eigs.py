@@ -2,8 +2,9 @@
 derivative, float64), and its warm shape eigensolver against host ARPACK
 on the CPU: the remesh sequence of the JAX package's own warm test, the
 forced and low-overlap re-anchors, the dump row of the scatter, and the
-escalation round.  The warm solver's guard noise comes from a torch generator, so its
-output is held against ARPACK, not against JAX's warm output bit for bit."""
+escalation round.  The warm solver's host anchors solve for its guard
+columns (the JAX package seeds them with noise), so its output is held
+against ARPACK, not against JAX's warm output bit for bit."""
 
 import numpy as np
 import pytest
@@ -110,8 +111,9 @@ def test_warm_solver_matches_host_over_a_remesh_sequence():
 
 def test_request_anchor_forces_one_host_solve(task):
     """A requested anchor makes the next solve a host ARPACK solve (its
-    values are ARPACK's, bit for bit) and the one after it warm again."""
-    modes = []
+    values are those of ARPACK's solve for the modes and the guards, bit for
+    bit) and the one after it warm again."""
+    modes, k = [], task.warm.k
     for i, coef in enumerate([0.5, 0.51, 0.52, 0.53]):
         if i == 2:
             task.warm.request_anchor()
@@ -119,7 +121,7 @@ def test_request_anchor_forces_one_host_solve(task):
         vals, _ = task._eigensolve(out, comp)
         modes.append(task.warm.last_mode)
         if i == 2:
-            assert np.array_equal(vals, task._eigensolve_host(out, comp)[0])
+            assert np.array_equal(vals, task._eigensolve_host(out, comp, task.warm.kg)[0][:k])
     assert modes == ["cold", "warm", "cold", "warm"]
     assert (task.warm.total_cold, task.warm.total_warm) == (2, 2)
 
@@ -137,7 +139,7 @@ def test_low_slot_overlap_forces_a_host_solve(task):
     vals, U = task._eigensolve(out2, comp2)
     assert task.warm.last_mode == "cold" and task.warm.total_cold == 2
     assert isinstance(U, np.ndarray)
-    assert np.array_equal(vals, task._eigensolve_host(out2, comp2)[0])
+    assert np.array_equal(vals, task._eigensolve_host(out2, comp2, task.warm.kg)[0][: task.warm.k])
 
 
 def test_scatter_sends_pad_rows_to_the_dump_row(task):

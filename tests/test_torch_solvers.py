@@ -230,3 +230,36 @@ def test_sound_object_cache_and_param_grads():
         tm.get_undamped_freqs_cached(pt, carried).detach().numpy(), ft.detach().numpy(),
         rtol=1e-10,
     )
+
+
+def test_noise_guard_columns_do_not_pass_the_wanted_block():
+    """A warm start from the previous geometry's exact basis plus noise guard
+    columns (the warm shape solver's first solve after a host re-anchor), on
+    a mesh with one thin layer of cells (the spectrum spans 2.4e7 x, as a
+    marching-tets mesh's slivers make it).  The exit test scales each wanted
+    column's residual by the block's largest Ritz value capped at
+    `GUARD_SCALE_CAP` times the wanted block's: scaled by the noise guards'
+    (as the JAX package's `lobpcg` does) it passed at the first check,
+    residual 1.2e-4, with eigenvalues 2.9e-3 from the truth."""
+    m = cube_tet_mesh(4, 0.5)
+    v = m.vertices.copy()
+    xs = np.unique(np.round(v[:, 0], 9))
+    h = xs[1] - xs[0]
+    v[np.isclose(v[:, 0], xs[-1]), 0] = xs[-2] + 1e-3 * h
+    k, guards = K_MODES, 8
+    to = tasm.build_element_ops(torch.as_tensor(v), m.tets, 1, dtype=torch.float64)
+    K, M = tasm.assemble_scipy(to, MU, LAM, 1.0)
+    _, vecs = scipy.linalg.eigh(K.toarray(), M.toarray())
+    # the next geometry: the vertices off the thin layer moved by 3% of a cell
+    rng = np.random.default_rng(3)
+    moved = v + 0.03 * h * rng.standard_normal(v.shape) * (v[:, :1] < xs[-2] - 1e-9)
+    to2 = tasm.build_element_ops(torch.as_tensor(moved), m.tets, 1, dtype=torch.float64)
+    K2, M2 = tasm.assemble_scipy(to2, MU, LAM, 1.0)
+    ref = scipy.linalg.eigh(K2.toarray(), M2.toarray(), eigvals_only=True)[:k]
+    dsc, a, b = _scaled_fns_torch(to2, MU, LAM)
+    noise = np.random.default_rng(4).standard_normal((vecs.shape[0], guards))
+    x0 = torch.as_tensor(np.concatenate([vecs[:, :k], noise], 1)) / dsc
+    res = tlo.lobpcg(a, b, x0, max_iters=100, tol=3e-3, reuse_products=True, num_wanted=k)
+    got = res.eigenvalues.numpy()[6:k]
+    assert float(res.residual_norms[:k].max()) <= 3e-3 and res.iterations > 1
+    assert np.abs(got / ref[6:] - 1).max() < 1e-3
