@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of `diffsound_tpu`.  Phases, each of which
-fails the run by raising:
+fails the run by raising (the kernel phase runs alone; then phases 3-6 run
+in order in one process, beside phases 7-10, each in a process of its own;
+the leftovers run last):
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of every kernel from the sources in the
@@ -72,7 +74,7 @@ fails the run by raising:
    two tasks run at once (morphing in a second process).  Then both shape
    CLIs at grid 16 with each optimizer.  No synthesis kernel runs here: the
    shape loss is the relative eigenvalue mismatch.
-8. Geometry phase, in a second process beside the shape phase, at
+8. Geometry phase, beside the shape phase, at
    `configs/geometry_train.json`'s widths (grid 32, freq_num 3, the SDF MLP
    21 -> 512 x 4 -> 1, 64 + 6 modes, voxel 16, Ceramic, the warm
    eigensolver re-anchoring every 50) on a procedural ground truth (the
@@ -90,14 +92,14 @@ fails the run by raising:
    memory, a warm solve at the final params against host ARPACK with the
    task's solver settings, one iteration's profile, and the geometry CLI at
    grid 16.  No synthesis kernel runs here either.
-9. Joint phase, in a third process beside the shape and geometry phases,
+9. Joint phase, beside the shape and geometry phases,
    at `configs/joint_train.json`'s widths (grid 24, the split SDF MLPs 27 ->
    128 x 4 -> 1, 8 + 6 modes, 8 ring views at 128^2, light_res 16,
    audio_weight 0.2, Ceramic) on the CLI's ground truth (two spheres,
    20,532 DOF): its eigenvalues (cold host ARPACK) against the JAX
    package's, the 8 target views under the JAX package's PRNGKey(0)
    texture and light (JOINT_INIT) against JAX's means, the 800-step sphere
-   pretrain, 40 optimize iterations, five passes over the views (gates:
+   pretrain, 24 optimize iterations, three passes over the views (gates:
    finite losses, no skipped iteration, the best audio loss below
    iteration 0's; each view's image loss over the passes, which rises in
    both packages' loops, printed beside JAX's), the card's f32 pass at the
@@ -114,11 +116,27 @@ fails the run by raising:
    the DLMesh run: an icosphere shrinking toward a smaller one's renders
    at 128^2 over 8 views, 50 iterations.  No synthesis kernel runs on
    either path.
-10. Leftovers phase: the stress path (`k_matvec_stress` through
+10. Parallel phase, beside the shape, geometry and joint phases: all 16
+   flagship pairs at once through `train_pairs_parallel` (the multi-pair trainer at dp = ep = 1) at the
+   flagship width on `cube_tet_mesh(6, 0.3)` at order 2 (6,591 DOF; a depth
+   cut for the phase's 50 host ARPACK solves), from the JAX package's
+   pretrained bins (results/parallel/jax_batched_newton.npz): 60 L1 steps
+   with a refresh every 15 (gates: finite losses, the synthesis kernels
+   launched once each a step, 60 + 60, the last step's mean loss below the
+   first's; each pair's losses printed beside JAX's), a refresh at the final
+   params against host ARPACK for every pair (WARM_GATE), one step for all
+   pairs in f32 on the card against the port's f64 on the CPU
+   (STEP_GATES), the B = 16 step's and a refresh's profiles, a refresh
+   under `device_trace` with one `lobpcg_iter` span per iteration,
+   `BatchedModalNewton` (12 rounds) against the JAX package's batched fit
+   (2% in E, 0.03 in nu), the CLI's `parallel` recipe (16 pairs, 30 epochs)
+   and `dryrun_multichip(1)`.
+11. Leftovers phase: the stress path (`k_matvec_stress` through
    `linear_stress`) at order 2 on `cube_tet_mesh(9, 0.3)` in f32 against the
    CPU's f64 `k_matvec`, `TinyNN`'s stress path and f64 jacobian,
-   `lobpcg_solver_freq` against ARPACK, and BEM's pulsating sphere and 1/r
-   decay in complex64 and complex128.
+   `lobpcg_solver_freq` against ARPACK, `Texture2D.sample` through its mips
+   and `EnvironmentLight.from_latlong` against the CPU, and BEM's pulsating
+   sphere and 1/r decay in complex64 and complex128.
 
 The line before the last is one JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -285,7 +303,8 @@ def kernel_phase(device):
 
     flagship = None
     for A, M, T, tables in ((1, 16, 8000, synth_modes), (8, 256, 8000, synth_modes),
-                            (3, 40, 1000, synth_modes), (8, 256, 8000, gt_bank_modes)):
+                            (3, 40, 1000, synth_modes), (8, 256, 8000, gt_bank_modes),
+                            (16, 16, 8000, synth_modes)):
         f, d, a = tables(A, M, device, seed=A * 1000 + M)
         shape = f"({A},{M},{T}){' GT bank tables' if tables is gt_bank_modes else ''}"
         if tables is gt_bank_modes:
@@ -2203,7 +2222,8 @@ def geometry_cli(tmp):
 # + 6; 8 ring views at 128^2 and cam_radius 2.7; light_res 16; audio_weight
 # 0.2; Ceramic) on the CLI's own ground truth, the union of two spheres
 # (`gt_sdf_two_spheres`); the CLI's 800-step sphere pretrain, then `iters`
-# optimize iterations (five passes over the 8 views) at lr_geo (lr_app the
+# optimize iterations (three passes over the 8 views; cut from 40 to fit the
+# script's time limit) at lr_geo (lr_app the
 # CLI's 1e-2).  At the CLI's lr_geo of 1e-3 the audio loss grows the shape:
 # the JAX package's run fills the grid by its 7th iteration (its other 33
 # steps fail on an empty surface) and neither package's image loss drops
@@ -2212,7 +2232,7 @@ def geometry_cli(tmp):
 # rendered under the JAX package's PRNGKey(0) texture and light
 # (JOINT_INIT, written by scripts/jax_joint_reference.py).
 JOINT_SPEC = dict(grid=24, modes=8, views=8, res=128, hidden=128, light=16, audio_weight=0.2,
-                  cam_radius=2.7, pretrain=800, pretrain_lr=3e-4, iters=40, lr_geo=1e-4,
+                  cam_radius=2.7, pretrain=800, pretrain_lr=3e-4, iters=24, lr_geo=1e-4,
                   noise_seed=7)
 JOINT_INIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "joint",
                           "jax_init_appearance.npz")
@@ -2984,6 +3004,31 @@ def leftovers_phase(dev):
     if not (vecs.shape == (n, 6) and err <= 1e-6):
         raise RuntimeError("leftovers: lobpcg_solver_freq disagrees with ARPACK")
 
+    # the render leftovers on the card against the CPU: trilinear Texture2D
+    # sampling through the derived mips, and a light from a latlong map
+    from diffsound_torch.render.light import EnvironmentLight
+    from diffsound_torch.render.texture import Texture2D
+
+    rng = np.random.default_rng(3)
+    img = rng.uniform(size=(64, 64, 3)).astype(np.float32)
+    uv = torch.as_tensor(rng.uniform(size=(128, 128, 2)), dtype=torch.float32)
+    deriv = torch.as_tensor(rng.uniform(0, 0.2, size=(128, 128, 4)), dtype=torch.float32)
+    ll = rng.uniform(size=(32, 64, 3)).astype(np.float32)
+    outs = {}
+    for where in ("cpu", dev):
+        tex = Texture2D(img, device=where)
+        p = tex.params.clone().requires_grad_(True)
+        val = tex.sample(p, uv.to(where), uv_deriv=deriv.to(where))
+        grad, = torch.autograd.grad((val * val).sum(), p)
+        _, lp = EnvironmentLight.from_latlong(torch.as_tensor(ll, device=where), base_res=32)
+        outs[where] = [x.detach().double().cpu() for x in (val, grad, lp["base"])]
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(outs[dev], outs["cpu"])]
+    log(f"leftovers: Texture2D.sample with 7 mips at 128^2 uv and its gradient, "
+        f"EnvironmentLight.from_latlong at base 32: card against CPU (f32) {fmt(gaps, 9)} "
+        f"(gate 1e-5 each)")
+    if not max(gaps) <= 1e-5:
+        raise RuntimeError("leftovers: the render leftovers on the card disagree with the CPU")
+
     # BEM: the analytic pulsating sphere and the far-field decay
     for dtype in (torch.float32, torch.float64):
         a, freq = 0.1, 1000.0
@@ -3007,6 +3052,376 @@ def leftovers_phase(dev):
             f"ratio {pf[0] / pf[1]:.5f} (2 +- 0.1)")
         if not (err < 0.15 and spread < 0.02 and abs(pf[0] / pf[1] - 2.0) < 0.1):
             raise RuntimeError(f"leftovers: BEM in {model._phi.dtype} fails the analytic checks")
+
+
+# The parallel phase: all 16 flagship pairs at once at the flagship width on
+# cube_tet_mesh(6, 0.3) at order 2 (6,591 DOF; a depth cut from the main
+# path's 20,577: the phase's 50 host ARPACK solves would not fit the time
+# limit there).  results/parallel/jax_batched_newton.npz holds the JAX
+# package's start, 60-step losses and batched Newton fits on this cube
+# (scripts/jax_parallel_reference.py).
+PARALLEL_SPEC = dict(cube=6, size=0.3, steps=60, rounds=12, cli_epochs=30)
+PARALLEL_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "parallel",
+                            "jax_batched_newton.npz")
+PARALLEL_NEWTON_GATES = dict(E=0.02, nu=0.03)
+
+
+# A pair's loss and its gradients' norms are held to max(STEP_GATES, this
+# times the CPU's own f32 gap for that pair), as the repo's other f32 gates
+# are held to a reference's own f32 gap: the L1 gradient sums 8000
+# oscillating terms that mostly cancel, so where a pair's dL/dE is small
+# f32's error in it is large beside it (on an H100 one pair read 0.81 at
+# cosine 1.0 at the final params: the logits' gradient direction is the
+# bins' dE/dlogits whatever dL/dE is, so only its scale and sign carry the
+# error; in another run one pair read 4.53 on the card and 1.90 on the
+# CPU's f32, its sign flipped on both).
+PARALLEL_F32_MARGIN = 4.0
+
+
+def parallel_step_check(task, res, pairs):
+    """One multi-pair step for all 16 pairs on the card in f32 against the
+    port's f64 on the CPU, at the run's final params and eigenvectors:
+    frequencies held to STEP_GATES; each pair's loss and its loss and probe
+    gradients' relative norm errors to the larger of STEP_GATES and
+    PARALLEL_F32_MARGIN times the same step's CPU f32 error there; the
+    gradient's cosine and the Adam step to STEP_GATES for each pair whose
+    gradient the CPU's f32 resolves (see step_precision_check)."""
+    import torch
+
+    from diffsound_torch.models.sound_obj import build_model
+    from diffsound_torch.parallel.mesh import make_device_mesh
+    from diffsound_torch.parallel.train import MultipairTrainer
+
+    lr = 2e-3
+    card = res["trainer"]
+    runs = {}
+    for name, dtype in (("card f32", torch.float32), ("cpu f32", torch.float32),
+                        ("cpu f64", torch.float64)):
+        if name == "card f32":
+            tr, device = card, card.mesh.device
+        else:
+            device = torch.device("cpu")
+            m = build_model(mesh=task.mesh, mode_num=16, order=2, mat=pairs[0][0],
+                            task="material", dtype=dtype, device="cpu")
+            tr = MultipairTrainer(bins=m.bins, ops=m.ops, osc=card.osc,
+                                  mesh=make_device_mesh(1, 1, "cpu"),
+                                  forces=card.forces.to("cpu", dtype), sample_rate=SR, lr=lr)
+        p = {k: v.detach().to(device).clone().requires_grad_(True)
+             for k, v in res["params"].items()}
+        keys = list(p)
+        ev, evec, gt = (res[k].to(device=device, dtype=dtype) for k in ("eigval", "eigvec", "gt"))
+        losses, freqs, sig = tr.forward(p, ev, evec, gt)
+        g_probe = torch.autograd.grad((sig * gt).sum(), [p[k] for k in keys],
+                                      retain_graph=True)
+        losses.sum().backward()
+        grads = [p[k].grad.detach().clone() for k in keys]
+        tr.bins.mask_grads(p)
+        before = [p[k].detach().clone() for k in keys]
+        torch.optim.Adam([p[k] for k in keys], lr=lr).step()
+        cpu = lambda ts: [t.double().cpu() for t in ts]
+        runs[name] = dict(freqs=freqs.detach().double().cpu(), loss=losses.detach().double().cpu(),
+                          probe=cpu(g_probe), grad=cpu(grads),
+                          step=cpu(p[k].detach() - b for k, b in zip(keys, before)))
+    ref = runs["cpu f64"]
+
+    def per_pair(run):
+        """Each pair's loss gap and its gradients' relative norm errors (the
+        larger over the logit tensors), against the CPU's f64."""
+        rel = lambda a, b: torch.stack([(x - y).norm(dim=1) / y.norm(dim=1)
+                                        for x, y in zip(a, b)]).amax(0)
+        return dict(loss=(run["loss"] / ref["loss"] - 1).abs(), grad=rel(run["grad"], ref["grad"]),
+                    probe=rel(run["probe"], ref["probe"]))
+
+    got, wit = per_pair(runs["card f32"]), per_pair(runs["cpu f32"])
+    card_run = runs["card f32"]
+    freqs = float(((card_run["freqs"] - ref["freqs"]).abs() / ref["freqs"]).max())
+    cos = torch.stack([(a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+                       for a, b in zip(card_run["grad"], ref["grad"])]).amin(0)
+    step = torch.stack([(a - b).abs().amax(1)
+                        for a, b in zip(card_run["step"], ref["step"])]).amax(0) / lr
+    # a pair whose gradient the CPU's own f32 misses by more than the
+    # gradient gate is not resolved by f32 (its sign may flip, and Adam's
+    # first step then moves the other way): its cosine and Adam step are
+    # printed, not gated
+    resolved = wit["grad"] <= STEP_GATES["grad"]
+    bad = []
+    for k in ("loss", "grad", "probe"):
+        gate = torch.clamp(PARALLEL_F32_MARGIN * wit[k], min=STEP_GATES[k])
+        b = int((got[k] / gate).argmax())
+        log(f"parallel step precision, {k}: card f32 against cpu f64 per pair "
+            f"{fmt(got[k].tolist(), 7)}; the CPU's own f32 {fmt(wit[k].tolist(), 7)}; "
+            f"closest to its gate: pair {b}, {float(got[k][b]):.3e} of {float(gate[b]):.3e}")
+        bad += [f"{k} pair {i}" for i in range(len(gate)) if not got[k][i] <= gate[i]]
+    bad += [f"cosine pair {i}" for i in range(len(cos))
+            if resolved[i] and not cos[i] >= STEP_GATES["cos"]]
+    bad += [f"Adam step pair {i}" for i in range(len(step))
+            if resolved[i] and not step[i] <= STEP_GATES["step"]]
+    if not freqs <= STEP_GATES["freqs"]:
+        bad.append("frequencies")
+    n_res = int(resolved.sum())
+    worst = lambda x, f: float(f(x[resolved])) if n_res else float("nan")
+    log(f"parallel step precision, 16 pairs, card f32 against cpu f64: frequencies "
+        f"{freqs:.3e} (gate {STEP_GATES['freqs']}); over the {n_res} pairs f32 resolves, "
+        f"gradient cosine {worst(cos, torch.min):.9f} (gate {STEP_GATES['cos']}), Adam "
+        f"step {worst(step, torch.max):.3e} lr (gate {STEP_GATES['step']}); printed for "
+        f"the others, pairs {(~resolved).nonzero().flatten().tolist()}: cosine "
+        f"{fmt(cos[~resolved].tolist(), 6)}, Adam step {fmt(step[~resolved].tolist(), 4)} lr")
+    if bad:
+        raise RuntimeError(f"parallel: the f32 multi-pair step on the card disagrees with the "
+                           f"CPU f64 step beyond its gates: {bad}")
+
+
+def parallel_refresh_check(res, pairs, task):
+    """A warm refresh at every pair's final material against a host ARPACK
+    solve there (WARM_GATE on the relative eigenvalue error of the 16
+    modes); returns the refresh's (eigval, LOBPCG iterations)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    tr = res["trainer"]
+    t0 = time.perf_counter()
+    ev, _, its = tr.refresh(res["params"], res["eigvec"])
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    with torch.no_grad():
+        mu, lam = (x.double().cpu().numpy() for x in tr.bins.lame(res["params"]))
+    model = task._build(pairs[0][0], 2, task.task)
+    t0 = time.perf_counter()
+    # ARPACK and its LU factorization release the GIL: four solves at once
+    with ThreadPoolExecutor(4) as ex:
+        host = list(ex.map(lambda b: model.eigen_decomposition_at_lame(mu[b], lam[b]),
+                           range(len(pairs))))
+    errs = [float(np.abs(ev[b, 6:].double().cpu().numpy()
+                         / h.eigenvalues[6:].double().cpu().numpy() - 1).max())
+            for b, h in enumerate(host)]
+    log(f"parallel refresh at the final params: {refresh_s:.3f} s, LOBPCG iterations per pair "
+        f"{its}; against host ARPACK ({time.perf_counter() - t0:.1f} s for 16 solves, four "
+        f"threads): max relative eigenvalue error per pair {fmt(errs, 7)} (gate {WARM_GATE})")
+    if not max(errs) <= WARM_GATE:
+        raise RuntimeError(f"parallel: a pair's warm refresh is {max(errs):.3e} from host "
+                           f"ARPACK (gate {WARM_GATE})")
+    return its
+
+
+def refresh_kernels(tr, params, evec, top: int = 8):
+    """The `top` kernel names of one refresh by launch count, with each
+    one's count and device ms (torch.profiler)."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.refresh(params, evec)
+        torch.cuda.synchronize()
+    n, us = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            n[e.name[:60]] += 1
+            us[e.name[:60]] += e.time_range.elapsed_us()
+    return "; ".join(f"{k} x{c} {us[k] / 1e3:.1f} ms" for k, c in n.most_common(top))
+
+
+def parallel_profiles(res):
+    """The B = 16 L1 step and one refresh: host and device ms, launches,
+    LOBPCG iterations; then one refresh under device_trace with the solver's
+    profiler option: its Chrome trace must hold one lobpcg_iter span per
+    iteration."""
+    import torch
+
+    tr = res["trainer"]
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in res["params"].items()}
+    opt = torch.optim.Adam(list(params.values()), lr=tr.lr)
+    ev, evec, gt = res["eigval"], res["eigvec"], res["gt"]
+
+    def step():
+        tr.step(params, opt, ev, evec, gt)
+
+    host_ms, device_ms, launches = profile_step("parallel step profile, L1, B = 16", step)
+    its = []
+    refresh = profile_once("parallel refresh profile, B = 16",
+                           lambda: its.append(tr.refresh(params, evec)[2]))
+    log(f"parallel refresh profile: LOBPCG iterations per pair {its[0]}")
+    log(f"parallel refresh profile, the kernels launched most: {refresh_kernels(tr, params, evec)}")
+    # the trace of a refresh runs to tens of MiB: it stays on the machine
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lobpcg_trace_") as trace_dir:
+        _, _, its = tr.refresh(params, evec, profiler=trace_dir)
+        trace = os.path.join(trace_dir, "trace.json")
+        mib = os.path.getsize(trace) / 2**20
+        with open(trace) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("name") == "lobpcg_iter" and e.get("cat") == "user_annotation"]
+    log(f"parallel refresh under device_trace: {len(spans)} lobpcg_iter spans for "
+        f"{max(its)} iterations of the batch in a {mib:.1f} MiB Chrome trace")
+    if len(spans) != max(its):
+        raise RuntimeError("parallel: the profiled refresh's trace lacks its lobpcg_iter spans")
+    return dict(step_host_ms=host_ms, step_device_ms=device_ms, step_launches=launches,
+                refresh_host_ms=refresh[0], refresh_device_ms=refresh[1], refresh_iters=its)
+
+
+def parallel_newton(res, pairs, ref):
+    """BatchedModalNewton over the 16 pairs from the cold basis at pair 0's
+    init material, each pair from its own init material, on the peaks of the
+    card's ground truths: each pair within PARALLEL_NEWTON_GATES of the JAX
+    package's f32 fit, unless JAX's own f32 and f64 fits are further apart
+    than that (printed then)."""
+    import numpy as np
+
+    from diffsound_torch.audio.freq_loss import extract_spectral_peaks
+    from diffsound_torch.fem.material import lame_params
+    from diffsound_torch.parallel.newton import BatchedModalNewton
+
+    gt = res["gt"].cpu().numpy()
+    peaks = [extract_spectral_peaks(gt[b:b + 1], SR) for b in range(len(pairs))]
+    init = pairs[0][0]
+    fitter = BatchedModalNewton(res["trainer"], [p for p, _ in peaks], [w for _, w in peaks],
+                                SR, init[3], init[4])
+    lame = np.array([lame_params(i[1] / i[0], i[2]) for i, _ in pairs])
+    evec0 = res["cold_eig"].eigenvectors[None].expand(len(pairs), -1, -1).clone()
+    t0 = time.perf_counter()
+    fit = fitter.fit(lame[:, 0], lame[:, 1], evec0, rounds=PARALLEL_SPEC["rounds"])
+    wall = time.perf_counter() - t0
+    its = np.asarray(fit["iterations"])
+    log(f"parallel batched Newton: {PARALLEL_SPEC['rounds']} rounds over 16 pairs in "
+        f"{wall:.3f} s; LOBPCG iterations per round (max over pairs) {its.max(1).tolist()}")
+    bad = []
+    for b in range(len(pairs)):
+        e32, n32 = ref["newton_E_f32"][b], ref["newton_nu_f32"][b]
+        e64, n64 = ref["newton_E_f64"][b], ref["newton_nu_f64"][b]
+        de, dn = abs(fit["E"][b] / e32 - 1), abs(fit["nu"][b] - n32)
+        gated = (abs(e32 / e64 - 1) <= PARALLEL_NEWTON_GATES["E"]
+                 and abs(n32 - n64) <= PARALLEL_NEWTON_GATES["nu"])
+        log(f"parallel Newton pair {b}: E {fit['E'][b]:.6g} nu {fit['nu'][b]:.5f}; JAX f32 "
+            f"{e32:.6g} {n32:.5f} (E {de:.3e}, nu {dn:.3e}), JAX f64 {e64:.6g} {n64:.5f}; "
+            f"target {pairs[b][1][1]:.6g} {pairs[b][1][2]:.5f}"
+            f"{'' if gated else '; printed, not gated: JAX f32 and f64 differ beyond the gate'}")
+        if gated and not (de <= PARALLEL_NEWTON_GATES["E"] and dn <= PARALLEL_NEWTON_GATES["nu"]):
+            bad.append(b)
+    if bad:
+        raise RuntimeError(f"parallel: batched Newton pairs {bad} disagree with the JAX "
+                           f"package's fit beyond {PARALLEL_NEWTON_GATES}")
+    return wall
+
+
+def parallel_cli(mesh):
+    """material_sync's CLI with "parallel": true, 16 pairs, 30 epochs, on a
+    .msh of the phase's cube."""
+    from diffsound_torch.experiments import material_sync
+    from diffsound_torch.fem.mesh import write_msh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_cli_") as tmp:
+        msh = os.path.join(tmp, "cube.msh")
+        write_msh(msh, mesh.vertices, mesh.tets)
+        cfg = {"sample_rate": 32000, "frame_num": 8000, "force_frame_num": 150,
+               "mesh_dir": msh, "mesh_name": "cube", "mode_num": 16, "num_material_pairs": 16,
+               "exp_mode": 3, "out_dir": os.path.join(tmp, "out"), "parallel": True,
+               "max_epoch": PARALLEL_SPEC["cli_epochs"]}
+        cfg_path = os.path.join(tmp, "parallel.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        material_sync.main(["--config", cfg_path])
+        with open(os.path.join(tmp, "out", "result.txt")) as f:
+            lines = f.read().splitlines()
+    n = sum(1 for line in lines if line.startswith("material:"))
+    E = [float(line.split(":")[1]) for line in lines if line.startswith("youngs:")]
+    rate = float(lines[-1].split(":")[1]) if lines[-1].startswith("pair_iters_per_sec:") \
+        else float("nan")
+    log(f"parallel cli: {n} materials in result.txt, E from {min(E):.4g} to {max(E):.4g}, "
+        f"pair_iters_per_sec {rate:.3f}, {time.perf_counter() - t0:.3f} s")
+    if not (n == 16 and len(E) == 16 and all(math.isfinite(e) for e in E)
+            and math.isfinite(rate) and rate > 0):
+        raise RuntimeError("parallel cli: result.txt lacks 16 finite materials or the rate")
+
+
+def parallel_phase():
+    """All 16 flagship pairs at once through `train_pairs_parallel` on one
+    card (dp = ep = 1): 60 L1 steps from the JAX package's pretrained bins,
+    a refresh every 15; the refresh against host ARPACK; one step in f32
+    against the CPU's f64; the step and refresh profiles and a profiled
+    refresh's trace; the batched Newton fit against JAX's; the CLI's
+    parallel recipe; dryrun_multichip(1).  Returns the synthesis kernels'
+    launches over the 60 steps."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from diffsound_torch.experiments.material_sync import (
+        MaterialSyncTask, flagship_material_pairs, train_pairs_parallel,
+    )
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+    from diffsound_torch.parallel.dryrun import dryrun_multichip
+
+    torch.set_num_threads(2)  # the CPU step check shares the host with three phases
+    t_phase = time.perf_counter()
+    ref = np.load(PARALLEL_REF)
+    pairs = flagship_material_pairs(16)
+    mesh = cube_tet_mesh(PARALLEL_SPEC["cube"], PARALLEL_SPEC["size"])
+    task = MaterialSyncTask(mesh=mesh, mode_num=16, sample_rate=SR, frame_num=8000,
+                            force_frame_num=150, exp_mode=3)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        gt = torch.cat([g for g, _ in ex.map(task.make_gt, [t for _, t in pairs])])
+    gt_s = time.perf_counter() - t0
+    logits = {"youngs_logits": ref["init_youngs_logits"],
+              "poisson_logits": ref["init_poisson_logits"]}
+    steps = PARALLEL_SPEC["steps"]
+    torch.cuda.synchronize()
+    zero_counts()
+    res = train_pairs_parallel(task, pairs, SimpleNamespace(max_epoch=steps), None,
+                               init_logits=logits, gt_audio=gt)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses, jl = res["losses"], ref["traj_losses"]
+    log(f"parallel run: {3 * (2 * PARALLEL_SPEC['cube'] + 1) ** 3} DOF, 16 pairs; ground "
+        f"truths {gt_s:.1f} s (four threads), cold solve {res['cold_s']:.3f} s; {steps} steps "
+        f"in {res['step_s']:.3f} s ({1e3 * res['step_s'] / steps:.3f} ms a step with the "
+        f"first step's forms), refreshes {fmt(res['refresh_s'], 3)} s with LOBPCG iterations "
+        f"per pair {res['refresh_iters']}; {res['pair_iters_per_sec']:.1f} pair-iterations/s; "
+        f"synth kernel launches {launches}")
+    for b in range(16):
+        log(f"parallel pair {b}: loss {losses[0, b]:.5f} -> {losses[-1, b]:.5f}, JAX "
+            f"{jl[0, b]:.5f} -> {jl[-1, b]:.5f} (final gap {losses[-1, b] / jl[-1, b] - 1:+.3e}); "
+            f"E {res['youngs'][b]:.6g} (JAX {ref['traj_E'][b]:.6g}), nu {res['poisson'][b]:.5f} "
+            f"(JAX {ref['traj_nu'][b]:.5f})")
+    log(f"parallel run: mean loss {losses[0].mean():.5f} -> {losses[-1].mean():.5f}, JAX "
+        f"{jl[0].mean():.5f} -> {jl[-1].mean():.5f}")
+    if not (losses.shape == (steps, 16) and np.isfinite(losses).all()):
+        raise RuntimeError("parallel: non-finite or missing losses")
+    if launches != {"synth_constant_modes": steps, "synth_constant_modes_bwd": steps}:
+        raise RuntimeError(f"parallel: {steps} steps of 16 pairs launched the synthesis "
+                           f"kernels {launches} times, not once each a step")
+    if not losses[-1].mean() < losses[0].mean():
+        raise RuntimeError("parallel: the last step's mean loss is not below the first's")
+
+    parallel_refresh_check(res, pairs, task)
+    parallel_step_check(task, res, pairs)
+    prof = parallel_profiles(res)
+    newton_s = parallel_newton(res, pairs, ref)
+    parallel_cli(mesh)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, "cuda")
+    log(f"parallel dryrun_multichip(1) on the card: {time.perf_counter() - t0:.3f} s, E "
+        f"{dry['E'].tolist()} toward {dry['targets'].tolist()}")
+    log(f"parallel phase summary: " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "steps_s": res["step_s"],
+        "pair_iters_per_sec": res["pair_iters_per_sec"], "newton_s": newton_s, **prof}))
+    return launches
+
+
+def material_phases():
+    """The main path, the epoch recipes, the CLI and material_real, in order
+    (the recipes reuse the main path's ground truth); returns the main
+    path's and material_real's launch counts."""
+    launches, gt_audio = timed_phase("main path", main_path_phase)
+    timed_phase("epoch recipes", lambda: reference_phase(gt_audio))
+    timed_phase("cli", cli_phase)
+    return launches, timed_phase("material_real", material_real_phase)
 
 
 def timed_phase(name, fn):
@@ -3038,36 +3453,31 @@ def main() -> int:
     log(f"kernel build: csrc/synth.cu in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {synth_kernel.BUILD_SECONDS})")
 
+    # the kernels are timed alone on the card
     t_phase = time.perf_counter()
     figures = kernel_phase(device)
     log(f"phase kernel: {time.perf_counter() - t_phase:.3f} s")
-    t_phase = time.perf_counter()
-    launches, gt_audio = main_path_phase()
-    log(f"phase main path: {time.perf_counter() - t_phase:.3f} s")
-    t_phase = time.perf_counter()
-    reference_phase(gt_audio)
-    log(f"phase epoch recipes: {time.perf_counter() - t_phase:.3f} s")
-    t_phase = time.perf_counter()
-    cli_phase()
-    log(f"phase cli: {time.perf_counter() - t_phase:.3f} s")
-    t_phase = time.perf_counter()
-    real_launches = material_real_phase()
-    log(f"phase material_real: {time.perf_counter() - t_phase:.3f} s")
-    # the shape, geometry and joint phases spend much of their time in host
-    # ARPACK (one core each): the geometry and joint phases run in two more
-    # processes beside the shape phase (which runs its two tasks side by
-    # side already)
+    # the other phases wait on host ARPACK (one core each), the host loops
+    # and the card by turns: the shape phase (which runs its two tasks side
+    # by side) here, and four processes beside it: the material phases in
+    # order, geometry, joint and parallel (on an 8-core H100 host a fifth
+    # process, the material phases split in two, made every phase slower)
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     t_phase = time.perf_counter()
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        material = pool.submit(material_phases)
         geometry = pool.submit(timed_phase, "geometry", geometry_phase)
         joint = pool.submit(timed_phase, "joint and dlmesh", joint_phase)
+        parallel = pool.submit(timed_phase, "parallel", parallel_phase)
         shape_launches = timed_phase("shape", shape_phase)
+        launches, real_launches = material.result()
         geometry_launches = geometry.result()
         joint_launches = joint.result()
-    log(f"phases shape, geometry and joint, concurrently: {time.perf_counter() - t_phase:.3f} s")
+        parallel_launches = parallel.result()
+    log(f"phases material_sync, material_real, shape, geometry, joint and parallel, "
+        f"concurrently: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
     leftovers_phase(device)
     log(f"phase leftovers: {time.perf_counter() - t_phase:.3f} s")
@@ -3081,6 +3491,7 @@ def main() -> int:
         "launches": launches[name],
         # each path's own count, zeroed just before it and read just after
         "launches_by_path": {"material_sync newton": launches[name],
+                             "material_sync parallel": parallel_launches[name],
                              **{f"material_real {k}": v[name]
                                 for k, v in real_launches.items()},
                              **{f"shape {k}": v[name] for k, v in shape_launches.items()},

@@ -44,13 +44,15 @@ def _interp_linear(x: torch.Tensor, size: int) -> torch.Tensor:
     return x[..., lo] * (1.0 - w) + x[..., hi] * w
 
 
-def weighted_l1(x_pred, x_true):
-    """Time-weighted L1 with the DC bin removed."""
+def weighted_l1(x_pred, x_true, per_row: bool = False):
+    """Time-weighted L1 with the DC bin removed; per_row: one mean per
+    leading row (B,) instead of one over all."""
     T = x_pred.shape[-1]
     w = 1.0 - torch.linspace(1.0, 0.9, T, dtype=x_pred.dtype, device=x_pred.device)
     w = w / w.sum() * T
     w = w[None, None, :]
-    return (x_pred[:, 1:, :] * w - x_true[:, 1:, :] * w).abs().mean()
+    err = (x_pred[:, 1:, :] * w - x_true[:, 1:, :] * w).abs()
+    return err.mean(dim=(1, 2)) if per_row else err.mean()
 
 
 def _last_writes(bins: torch.Tensor, vals: torch.Tensor, ok: torch.Tensor, F: int):
@@ -145,7 +147,10 @@ class SSSLoss:
             )
         raise ValueError(f"unknown loss type {self.loss_type}")
 
-    def __call__(self, x_pred, x_true, freqs=None, scale=1.0, target_cache=None):
+    def __call__(self, x_pred, x_true, freqs=None, scale=1.0, target_cache=None,
+                 per_row: bool = False):
+        if per_row and self.loss_type != "l1_loss":
+            raise ValueError(f"per_row is an option of l1_loss, not {self.loss_type}")
         if self.loss_type == "l1_loss":
             lin_t, log_t = (
                 target_cache if target_cache is not None
@@ -153,7 +158,8 @@ class SSSLoss:
             )
             lin_p = spectrogram(x_pred, self.n_fft, self.hop)
             log_p = torch.log2(lin_p + self.eps)
-            return self.alpha * weighted_l1(log_p, log_t) + weighted_l1(lin_p, lin_t)
+            return (self.alpha * weighted_l1(log_p, log_t, per_row)
+                    + weighted_l1(lin_p, lin_t, per_row))
 
         if self.loss_type == "rmse_loss":
             (lt,) = (
@@ -203,11 +209,15 @@ class MSSLoss:
         """Per-scale target-side tensors (see SSSLoss.target_cache)."""
         return tuple(s.target_cache(x_true, scale) for s in self._scales())
 
-    def __call__(self, x_pred, x_true, freqs=None, scale=1.0, target_cache=None):
+    def __call__(self, x_pred, x_true, freqs=None, scale=1.0, target_cache=None,
+                 per_row: bool = False):
+        """The sum over scales; per_row (l1_loss only): (A,) losses of the
+        rows of (A, T) signals, each the loss of that row alone."""
         total = 0.0
         for i, sss in enumerate(self._scales()):
             tc = target_cache[i] if target_cache is not None else None
-            total = total + sss(x_pred, x_true, freqs, scale, target_cache=tc)
+            total = total + sss(x_pred, x_true, freqs, scale, target_cache=tc,
+                                per_row=per_row)
         return total
 
 

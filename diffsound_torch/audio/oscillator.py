@@ -144,16 +144,22 @@ class TraditionalOscillatorParams:
     mat: Material
 
     def __call__(self, undamped_freq, forces=None, dtype=torch.float32):
-        """undamped_freq (M,) -> (signal (A, T), damped_freq (M,))."""
-        f = undamped_freq.reshape(1, self.mode_num).expand(
+        """undamped_freq (M,) -> (signal (audio_num, T), damped_freq (M,)):
+        one mode table for every audio row.  undamped_freq (A, M) ->
+        (signal (A, T), damped_freq (A, M)): a mode table per row (the
+        multi-pair trainer's pairs, one synthesis call for all of them);
+        forces then has A rows or one."""
+        rows = undamped_freq.dim() == 2
+        f = undamped_freq if rows else undamped_freq.reshape(1, self.mode_num).expand(
             self.audio_num, self.mode_num
-        ).to(dtype)
+        )
+        f = f.to(dtype)
         lbd = (2.0 * math.pi * f) ** 2
         damp = rayleigh_damping(self.mat.alpha, self.mat.beta, lbd)
         fd = damped_frequency(f, damp)
         amps = torch.ones_like(f)
         sig = synth_constant_modes(fd, damp, amps, self.sample_num, self.sr, forces)
-        return sig, fd[0]
+        return sig, (fd if rows else fd[0])
 
 
 def cached_values(cache: dict, name: str, values: np.ndarray, like: torch.Tensor):

@@ -24,6 +24,32 @@ def params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
     }
 
 
+def multipair_state_from_jax(params_b: dict, opt_state: dict, lr: float, device="cpu",
+                             dtype=PARAM_DTYPE):
+    """JAX `MultipairTrainer` state -> the port's: params_b, the (B, K)
+    logits `MultipairTrainer.init` returns (numpy leaves), and the vmapped
+    optax Adam state as numpy, {"mu": {...}, "nu": {...}, "count": (B,)}
+    (optax's `ScaleByAdamState` fields).  Returns (params_b, opt_b): leaf
+    tensors on `device` and a torch.optim.Adam over them at `lr` whose
+    first and second moments and step count are optax's (the count is one
+    number per tensor in torch; every pair's count must agree)."""
+    params = params_from_jax(params_b, device, dtype)
+    for v in params.values():
+        v.requires_grad_(True)
+    opt = torch.optim.Adam(list(params.values()), lr=lr)
+    count = np.unique(np.asarray(opt_state["count"]))
+    if count.size != 1:
+        raise ValueError(f"the pairs' Adam step counts differ: {count}")
+    for k, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count[0])),
+            "exp_avg": torch.tensor(np.asarray(opt_state["mu"][k]), dtype=dtype, device=device),
+            "exp_avg_sq": torch.tensor(np.asarray(opt_state["nu"][k]), dtype=dtype,
+                                       device=device),
+        }
+    return params, opt
+
+
 def osc_params_from_jax(params: dict, device="cpu", dtype=PARAM_DTYPE) -> dict:
     """JAX `OscillatorBank` or `GTOscillatorBank` params (numpy leaves; the
     GT bank nests its noise params as {"noise": {"coeff_bank": x}}) -> the

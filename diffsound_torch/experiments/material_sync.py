@@ -16,8 +16,10 @@ the trainable model's material is then recovered by one of three recipes:
 
 The epoch trainer runs Adam with a step-decayed learning rate, reset at the
 switch from the early to the late phase, and a warm LOBPCG eigensolve
-refresh every 15 epochs.  Not ported yet: the parallel multi-pair trainer
-(parallel/), which raises NotImplementedError.
+refresh every 15 epochs.  The `parallel` recipe (`train_pairs_parallel`)
+trains every pair at once with the multi-pair trainer of parallel/: on one
+card in one process (dp = ep = 1), or over the ranks of a torch.distributed
+world (launched with torchrun; gloo on the CPU, NCCL on CUDA).
 
 exp_mode: 0 ord1/frozen-nu (baseline), 1 ord2/frozen-nu, 2 ord1/learn-nu,
 3 ord2/learn-nu (full DiffSound).
@@ -512,17 +514,115 @@ class MaterialSyncTask:
         return res
 
 
+def train_pairs_parallel(task: MaterialSyncTask, pairs, flags, logger=None,
+                         init_logits: Optional[dict] = None,
+                         gt_audio: Optional[torch.Tensor] = None) -> dict:
+    """Train all material pairs at once on a (dp, ep) mesh over this
+    process's torch.distributed world (one process: dp = ep = 1), with the
+    JAX package's rule ep = 2 from 4 ranks on.  Every pair starts from the
+    same bins, pretrained to pair 0's init material (`init_logits`, numpy
+    (B, K) logits such as the JAX package's `MultipairTrainer.init`,
+    replace them), and the cold basis at that material; flags.max_epoch
+    L1 steps at lr 2e-3 with a warm refresh every 15.  gt_audio (B, T), the
+    pairs' ground truths, is made with task.make_gt when None.
+
+    Returns all pairs' youngs and poisson (B,), pair_iters_per_sec, the
+    losses per step (max_epoch, B), and this rank's final state and timing:
+    params, eigval, eigvec, gt (device tensors of its pairs), the trainer,
+    the cold solve (cold_eig) and its seconds, each refresh's seconds and
+    LOBPCG iterations per pair, and the steps' seconds (device synced at
+    each refresh and at the end)."""
+    from ..convert import params_from_jax
+    from ..parallel.mesh import make_device_mesh, world
+    from ..parallel.train import MultipairTrainer
+
+    _, n = world()
+    ep = 2 if n >= 4 else 1
+    dmesh = make_device_mesh(dp=max(n // ep, 1), ep=ep, device=task.device)
+    dev = dmesh.device
+    B = len(pairs)
+    sl = dmesh.pair_slice(B)
+
+    init_mat = pairs[0][0]
+    model = task._build(init_mat, task.mesh_order, task.task)
+    osc = TraditionalOscillatorParams(1, task.mode_num, task.frame_num, task.sample_rate,
+                                      Material.of(init_mat))
+    forces = impulse_forces(1, task.force_frame_num, task.dtype, dev)
+    trainer = MultipairTrainer(bins=model.bins, ops=model.ops, osc=osc, mesh=dmesh,
+                               forces=forces, sample_rate=task.sample_rate, lr=2e-3)
+    if gt_audio is None:  # this rank's pairs only
+        gt_b = torch.cat([task.make_gt(g)[0] for _, g in pairs[sl]]).to(dev)
+    else:
+        gt_b = gt_audio[sl].to(dev)
+    t0 = time.perf_counter()
+    eig0 = model.eigen_decomposition()
+    cold_s = time.perf_counter() - t0
+    nl = sl.stop - sl.start
+    eigval_b = eig0.eigenvalues.to(dev)[None].expand(nl, -1).clone()
+    eigvec_b = eig0.eigenvectors.to(dev)[None].expand(nl, -1, -1).clone()
+    if init_logits is None:
+        params_b, opt_b = trainer.init(B)
+    else:
+        params_b = {k: v[sl].clone().requires_grad_(True)
+                    for k, v in params_from_jax(init_logits, dev).items()}
+        opt_b = torch.optim.Adam(list(params_b.values()), lr=trainer.lr)
+
+    losses, refresh_s, refresh_iters = [], [], []
+    step_s = 0.0
+    _sync(dev)
+    t_start = t0 = time.perf_counter()
+    for epoch in range(flags.max_epoch):
+        refresh = epoch % EIGEN_DECOMPOSE_CYCLE == 0 and epoch > 0
+        if refresh:
+            _sync(dev)
+            step_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eigval_b, eigvec_b, its = trainer.refresh(params_b, eigvec_b)
+            _sync(dev)
+            refresh_s.append(time.perf_counter() - t0)
+            refresh_iters.append(dmesh.gather_pairs(torch.as_tensor(its, device=dev)).tolist())
+            t0 = time.perf_counter()
+        params_b, opt_b, loss_b, eigval_b, eigvec_b = trainer.step(
+            params_b, opt_b, eigval_b, eigvec_b, gt_b)
+        losses.append(loss_b)
+        if epoch % EIGEN_DECOMPOSE_CYCLE == 0:
+            lh = loss_b.double().cpu().numpy()
+            E_b = trainer.youngs_poisson(params_b)[0].cpu().numpy()  # every rank gathers
+            if logger:
+                logger.scalars({f"loss_pair{i}": float(x) for i, x in enumerate(lh)}, epoch)
+            if dmesh.dp_rank == dmesh.ep_rank == 0:
+                print(f"epoch {epoch}: losses {lh.round(3).tolist()[:4]}... "
+                      f"E[:4] {E_b[:4].tolist()}")
+    _sync(dev)
+    step_s += time.perf_counter() - t0
+    wall = time.perf_counter() - t_start
+    E_b, nu_b = trainer.youngs_poisson(params_b)
+    return {
+        "youngs": E_b.double().cpu().numpy(), "poisson": nu_b.double().cpu().numpy(),
+        "pair_iters_per_sec": flags.max_epoch * B / wall,
+        "losses": torch.stack(losses).double().cpu().numpy() if losses else np.zeros((0, B)),
+        "params": {k: v.detach() for k, v in params_b.items()},
+        "eigval": eigval_b, "eigvec": eigvec_b, "gt": gt_b, "trainer": trainer,
+        "cold_eig": eig0, "cold_s": cold_s, "refresh_s": refresh_s, "refresh_iters": refresh_iters,
+        "step_s": step_s, "wall_s": wall,
+    }
+
+
 def main(argv=None):
     from ..config import parse_flags
 
     flags = parse_flags(
         "material_sync (diffsound-torch)", defaults={"parallel": False}, argv=argv
     )
-    if getattr(flags, "parallel", False):
-        raise NotImplementedError(
-            "parallel multi-pair training needs parallel/, not ported yet: "
-            "ROADMAP.md Queue 1, 'parallel'"
-        )
+    parallel = getattr(flags, "parallel", False)
+    device = getattr(flags, "device", "cuda")
+    rank = 0
+    if parallel:
+        from ..parallel.mesh import init_distributed
+
+        rank, n = init_distributed(device)
+        if n > 1 and torch.device(device).type == "cuda":
+            device = f"cuda:{rank}"
     recipe = getattr(flags, "recipe", "newton")
     if recipe not in RECIPES:
         raise ValueError(f"recipe must be one of {RECIPES}, got {recipe!r}")
@@ -541,12 +641,26 @@ def main(argv=None):
         frame_num=flags.frame_num,
         force_frame_num=flags.force_frame_num,
         exp_mode=flags.exp_mode,
-        device=getattr(flags, "device", "cuda"),
+        device=device,
     )
 
     pairs = flagship_material_pairs(getattr(flags, "num_material_pairs", 16))
-    logger = MetricLogger(flags.out_dir)
+    logger = MetricLogger(flags.out_dir) if rank == 0 else None
     results_path = os.path.join(flags.out_dir, "result.txt")
+
+    if parallel:
+        res = train_pairs_parallel(task, pairs, flags, logger)
+        if rank == 0:
+            with open(results_path, "a") as f:
+                for i, (_, gt_mat) in enumerate(pairs):
+                    f.write(
+                        f"material:{i}\nyoungs:{res['youngs'][i]}\n"
+                        f"poisson:{res['poisson'][i]}\n"
+                        f"target youngs:{gt_mat[1]}\ntarget poisson:{gt_mat[2]}\n"
+                    )
+                f.write(f"pair_iters_per_sec:{res['pair_iters_per_sec']:.3f}\n")
+            print(f"parallel run: {res['pair_iters_per_sec']:.2f} pair-iters/s")
+        return
 
     # Resumability across pairs: completed pairs already sit in result.txt
     # (one "material:<i>" line each); skip them so a restarted run continues

@@ -145,6 +145,17 @@ class EnvironmentLight:
         u = torch.rand((6, self.base_res, self.base_res, 3), generator=generator)
         return {"base": (u * scale + bias).to(device)}
 
+    @staticmethod
+    def from_latlong(img, base_res: int = 64):
+        """A light and its params from an (H, W, 3) equirectangular map
+        (a tensor, or numpy on the CPU): the map resampled onto the base
+        cubemap."""
+        from .util import latlong_to_cubemap
+
+        img = torch.as_tensor(np.asarray(img, np.float32)) if not torch.is_tensor(img) \
+            else img.float()
+        return EnvironmentLight(base_res), {"base": latlong_to_cubemap(img, base_res)}
+
     def _mip_roughness(self, i: int) -> float:
         if i == self.n_mips - 1:
             return 1.0

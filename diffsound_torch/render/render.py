@@ -20,7 +20,7 @@ from .bsdf import prepare_shading_normal
 from .light import EnvironmentLight
 from .mesh import Mesh, face_normals
 from .rasterize import Rast, interpolate, interpolate_face, rasterize
-from .util import xfm_points
+from .util import safe_normalize, xfm_points
 
 
 def _draw(like, generator, noise):
@@ -154,3 +154,17 @@ def render_mesh(mesh: Mesh, mat_params: dict, light: EnvironmentLight, light_par
             accum = accum + alpha * (rgb - accum)
         out[key] = accum
     return out
+
+
+def render_uv(mesh: Mesh, resolution, mlp_texture, mlp_params):
+    """Bake the MLP texture into UV space: rasterize the UV atlas,
+    interpolate world positions, sample the MLP.  Returns (mask (H, W, 1),
+    kd, ks, normal), each (H, W, C)."""
+    uv = mesh.v_tex * 2.0 - 1.0
+    uv_clip4 = torch.cat([uv, torch.zeros_like(uv[..., :1]), torch.ones_like(uv[..., :1])], -1)
+    rast = rasterize(uv_clip4, mesh.t_tex_idx, resolution, with_soft=False)[0]
+    gb_pos = interpolate(mesh.v_pos, rast, mesh.t_pos_idx)
+    all_tex = mlp_texture.sample(mlp_params, gb_pos)
+    mask = (rast.tri_id > 0)[..., None].float()
+    return (mask, all_tex[..., :-6], all_tex[..., -6:-3],
+            safe_normalize(all_tex[..., -3:]))

@@ -21,10 +21,17 @@ iteration needs no special case.  The solver is not differentiated;
 gradients flow through the Rayleigh correction in `solvers.diff_eigs`.
 The loop runs on the host with one device sync per iteration (the
 convergence test).
+
+`lobpcg_batched` solves B independent pencils at once on (B, n, m) blocks:
+the counterpart of `jax.vmap(lobpcg)` in the JAX package's parallel
+trainer, with vmap's semantics (each member iterates until its own exit
+test passes, then its state freezes).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -101,6 +108,7 @@ def lobpcg(
     record_history: bool = False,
     row_mask: Optional[torch.Tensor] = None,
     num_wanted: Optional[int] = None,
+    profiler: Optional[str] = None,
 ) -> LobpcgResult:
     """Compute the m smallest eigenpairs of A x = lambda B x.
 
@@ -120,16 +128,48 @@ def lobpcg(
         random P seed and dead-residual refresh vectors are masked).
     num_wanted: converge on the first `num_wanted` columns only; the rest
         are guard vectors whose residuals never gate the exit.
+    profiler: a trace directory: the solve runs under
+        `utils.profiler.device_trace(profiler)`, each iteration in a
+        `lobpcg_iter` span, with a host line per iteration (max relative
+        residual, milliseconds after a device sync).
     """
     with torch.no_grad():
         return _lobpcg(
             a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
-            reuse_products, record_history, row_mask, num_wanted,
+            reuse_products, record_history, row_mask, num_wanted, profiler,
         )
 
 
+class _Spans:
+    """The profiler option's per-iteration spans: no-ops without a trace
+    directory."""
+
+    def __init__(self, profiler: Optional[str], device):
+        self.profiler, self.device = profiler, device
+
+    def trace(self):
+        if self.profiler is None:
+            return contextlib.nullcontext()
+        from ..utils.profiler import device_trace
+
+        return device_trace(self.profiler)
+
+    @contextlib.contextmanager
+    def iteration(self, it: int, rel_fn):
+        if self.profiler is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("lobpcg_iter"):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        print(f"  lobpcg iter {it + 1}: max rel resid {float(rel_fn().max()):.3e} "
+              f"({(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
+
+
 def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
-            reuse_products, record_history, row_mask, num_wanted):
+            reuse_products, record_history, row_mask, num_wanted, profiler=None):
     n, m = x0.shape
     dtype, device = x0.dtype, x0.device
     tiny = torch.finfo(dtype).tiny
@@ -157,66 +197,191 @@ def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
     hist = torch.full((max_iters if record_history else 1,), float("nan"), dtype=dtype)
     rel = torch.full((m,), float("inf"), dtype=dtype, device=device)
     it = 0
-    while it < max_iters and float(rel[:nw].max()) > tol:
-        if not reuse_products:
-            AX = a_fn(X)
-            BX = b_fn(X)
-        R = AX - BX * theta[None, :]
+    spans = _Spans(profiler, device)
+    with spans.trace():
+        while it < max_iters and float(rel[:nw].max()) > tol:
+            with spans.iteration(it, lambda: rel[:nw]):
+                if not reuse_products:
+                    AX = a_fn(X)
+                    BX = b_fn(X)
+                R = AX - BX * theta[None, :]
 
-        # Relative residuals, computed before the step and reported at exit.
-        # The scale includes the block's largest Ritz value so near-null
-        # (rigid-body) modes, where ||A x|| itself is roundoff, still count
-        # as converged; capped at GUARD_SCALE_CAP times the wanted block's
-        # largest: a noise-seeded guard's Ritz value can sit 1e7 x above the
-        # block (a marching-tets mesh's slivers) and would pass every wanted
-        # column at the first check.
-        rn = torch.linalg.vector_norm(R, dim=0)
-        top = torch.minimum(theta.abs().max(), GUARD_SCALE_CAP * theta[:nw].abs().max())
-        scale = (theta.abs() + top) * torch.linalg.vector_norm(
-            BX, dim=0
-        ) + torch.linalg.vector_norm(AX, dim=0)
-        rel = rn / torch.clamp(scale, min=tiny)
-        if record_history:
-            hist[it] = rel[:nw].max().cpu()
+                # Relative residuals, computed before the step and reported at exit.
+                # The scale includes the block's largest Ritz value so near-null
+                # (rigid-body) modes, where ||A x|| itself is roundoff, still count
+                # as converged; capped at GUARD_SCALE_CAP times the wanted block's
+                # largest: a noise-seeded guard's Ritz value can sit 1e7 x above the
+                # block (a marching-tets mesh's slivers) and would pass every wanted
+                # column at the first check.
+                rn = torch.linalg.vector_norm(R, dim=0)
+                top = torch.minimum(theta.abs().max(), GUARD_SCALE_CAP * theta[:nw].abs().max())
+                scale = (theta.abs() + top) * torch.linalg.vector_norm(
+                    BX, dim=0
+                ) + torch.linalg.vector_norm(AX, dim=0)
+                rel = rn / torch.clamp(scale, min=tiny)
+                if record_history:
+                    hist[it] = rel[:nw].max().cpu()
 
-        W = precond_fn(R)
-        if reuse_products:
-            # Column-normalize; replace (near-)dead residual directions with
-            # fresh random vectors: after convergence W -> 0 and a degenerate
-            # basis otherwise corrupts the carried products.
-            wn = torch.linalg.vector_norm(W, dim=0)
-            fresh = randn(W.shape)
-            fresh = fresh * torch.rsqrt((fresh * fresh).sum(dim=0))
-            alive = wn > tiny ** 0.5
-            W = torch.where(alive[None, :], W / torch.clamp(wn, min=tiny)[None, :], fresh)
-            AW, BW = a_fn(W), b_fn(W)  # the only operator applications
-            S = torch.cat([X, W, P], dim=1)  # (n, 3m)
-            AS = torch.cat([AX, AW, AP], dim=1)
-            BS = torch.cat([BX, BW, BP], dim=1)
-            S, BS, Q = _b_orthonormalize(S, BS, gram_dtype)
-            AS = AS @ Q
-        else:
-            S = torch.cat([X, W, P], dim=1)
-            S, BS, _ = _b_orthonormalize(S, b_fn(S), gram_dtype)
-            AS = a_fn(S)
+                W = precond_fn(R)
+                if reuse_products:
+                    # Column-normalize; replace (near-)dead residual directions with
+                    # fresh random vectors: after convergence W -> 0 and a degenerate
+                    # basis otherwise corrupts the carried products.
+                    wn = torch.linalg.vector_norm(W, dim=0)
+                    fresh = randn(W.shape)
+                    fresh = fresh * torch.rsqrt((fresh * fresh).sum(dim=0))
+                    alive = wn > tiny ** 0.5
+                    W = torch.where(alive[None, :], W / torch.clamp(wn, min=tiny)[None, :], fresh)
+                    AW, BW = a_fn(W), b_fn(W)  # the only operator applications
+                    S = torch.cat([X, W, P], dim=1)  # (n, 3m)
+                    AS = torch.cat([AX, AW, AP], dim=1)
+                    BS = torch.cat([BX, BW, BP], dim=1)
+                    S, BS, Q = _b_orthonormalize(S, BS, gram_dtype)
+                    AS = AS @ Q
+                else:
+                    S = torch.cat([X, W, P], dim=1)
+                    S, BS, _ = _b_orthonormalize(S, b_fn(S), gram_dtype)
+                    AS = a_fn(S)
 
-        ritz, Z = _ritz(S, AS, gram_dtype)
-        Zm = Z[:, :m].to(dtype)
-        # "ortho" conjugate-direction update: drop the X-block component.
-        Zp = Zm.clone()
-        Zp[:m, :] = 0.0
-        X, P = S @ Zm, S @ Zp
-        if reuse_products:
-            AX, BX, AP, BP = AS @ Zm, BS @ Zm, AS @ Zp, BS @ Zp
-            if (it + 1) % 16 == 0:
-                # periodic re-anchoring against accumulated rotation roundoff
-                AX, BX = a_fn(X), b_fn(X)
-        theta = ritz[:m].to(dtype)
-        it += 1
+                ritz, Z = _ritz(S, AS, gram_dtype)
+                Zm = Z[:, :m].to(dtype)
+                # "ortho" conjugate-direction update: drop the X-block component.
+                Zp = Zm.clone()
+                Zp[:m, :] = 0.0
+                X, P = S @ Zm, S @ Zp
+                if reuse_products:
+                    AX, BX, AP, BP = AS @ Zm, BS @ Zm, AS @ Zp, BS @ Zp
+                    if (it + 1) % 16 == 0:
+                        # periodic re-anchoring against accumulated rotation roundoff
+                        AX, BX = a_fn(X), b_fn(X)
+                theta = ritz[:m].to(dtype)
+            it += 1
 
     return LobpcgResult(
         eigenvalues=theta, eigenvectors=X, iterations=it, residual_norms=rel,
         history=hist if record_history else None,
+    )
+
+
+def _chol_inv_t_batched(G: torch.Tensor):
+    """inv(chol(G)).mT of a batch of small SPD matrices, and cholesky_ex's
+    info (nonzero where a member is not positive definite)."""
+    L, info = torch.linalg.cholesky_ex(G)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device).expand_as(G)
+    return torch.linalg.solve_triangular(L, eye, upper=False).mT, info
+
+
+def _b_orthonormalize_batched(S, BS, gram_dtype):
+    """`_b_orthonormalize` on (B, n, c) blocks; also returns whether any
+    member's Cholesky failed."""
+    bad = torch.zeros(S.shape[0], dtype=torch.bool, device=S.device)
+
+    def one_pass(S, BS):
+        G = S.to(gram_dtype).mT @ BS.to(gram_dtype)
+        d = torch.rsqrt(torch.clamp(torch.diagonal(G, dim1=1, dim2=2),
+                                    min=torch.finfo(gram_dtype).tiny))
+        G = G * d[:, :, None] * d[:, None, :]
+        c = G.shape[-1]
+        jitter = 10.0 * c * torch.finfo(S.dtype).eps
+        Linv_t, info = _chol_inv_t_batched(
+            G + jitter * torch.eye(c, dtype=gram_dtype, device=G.device))
+        Linv_t, dc = Linv_t.to(S.dtype), d.to(S.dtype)[:, None, :]
+        return (S * dc) @ Linv_t, (BS * dc) @ Linv_t, info != 0
+
+    S, BS, bad1 = one_pass(S, BS)
+    S, BS, bad2 = one_pass(S, BS)
+    return S, BS, bad | bad1 | bad2
+
+
+def lobpcg_batched(
+    a_fn: Callable[[torch.Tensor], torch.Tensor],
+    b_fn: Callable[[torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    max_iters: int = 200,
+    tol: float = 1e-6,
+    profiler: Optional[str] = None,
+) -> LobpcgResult:
+    """B independent generalized eigensolves on one (B, n, m) block.
+
+    a_fn/b_fn map (B, n, k) -> (B, n, k), member b through its own pencil.
+    The body is `lobpcg`'s recompute body without preconditioning; member b
+    runs until its own exit test passes (or max_iters), then its state
+    freezes while the others iterate, so member b's result is `lobpcg` on
+    pencil b alone at its defaults (seed 0, float64 Grams).  The random P is drawn once, as
+    `lobpcg` draws it, and shared by every member.  One host sync per
+    iteration (the exit test of all members at once).
+
+    Returns a LobpcgResult with eigenvalues (B, m), eigenvectors (B, n, m),
+    residual_norms (B, m) and iterations, a list of B ints.
+    """
+    with torch.no_grad():
+        return _lobpcg_batched(a_fn, b_fn, x0, max_iters, tol, profiler)
+
+
+def _lobpcg_batched(a_fn, b_fn, x0, max_iters, tol, profiler):
+    B, n, m = x0.shape
+    dtype, device = x0.dtype, x0.device
+    gram_dtype = torch.float64
+    tiny = torch.finfo(dtype).tiny
+    gen = torch.Generator(device=device).manual_seed(0)
+    P = torch.randn((n, m), generator=gen, dtype=dtype, device=device).expand(B, n, m)
+
+    def ritz(S, AS, active):
+        G = S.to(gram_dtype).mT @ AS.to(gram_dtype)
+        G = 0.5 * (G + G.mT)
+        # frozen members may hold a degenerate Gram; eigh sees the identity
+        eye = torch.eye(G.shape[-1], dtype=gram_dtype, device=device)
+        return torch.linalg.eigh(torch.where(active[:, None, None], G, eye))
+
+    every = torch.ones(B, dtype=torch.bool, device=device)
+    X, BX, failed = _b_orthonormalize_batched(x0, b_fn(x0), gram_dtype)
+    AX = a_fn(X)
+    th0, Z0 = ritz(X, AX, every)
+    X = X @ Z0.to(dtype)
+    theta = th0.to(dtype)
+
+    rel = torch.full((B, m), float("inf"), dtype=dtype, device=device)
+    its = torch.zeros(B, dtype=torch.int64, device=device)
+    spans = _Spans(profiler, device)
+    sweep = 0
+    with spans.trace():
+        while True:
+            active = (its < max_iters) & (rel.amax(dim=1) > tol)
+            any_active, any_failed = torch.stack([active.any(), failed.any()]).tolist()
+            if any_failed:
+                # where `lobpcg`'s Cholesky raises
+                raise torch.linalg.LinAlgError(
+                    "lobpcg_batched: a member's B-Gram is not positive definite")
+            if not any_active:
+                break
+            with spans.iteration(sweep, lambda: rel):
+                AX, BX = a_fn(X), b_fn(X)
+                R = AX - BX * theta[:, None, :]
+                rn = torch.linalg.vector_norm(R, dim=1)
+                top = theta.abs().amax(dim=1, keepdim=True)
+                scale = (theta.abs() + top) * torch.linalg.vector_norm(BX, dim=1) + \
+                    torch.linalg.vector_norm(AX, dim=1)
+                rel_new = rn / torch.clamp(scale, min=tiny)
+
+                S = torch.cat([X, R, P], dim=2)
+                S, BS, bad_new = _b_orthonormalize_batched(S, b_fn(S), gram_dtype)
+                AS = a_fn(S)
+                ritz_vals, Z = ritz(S, AS, active)
+                Zm = Z[:, :, :m].to(dtype)
+                # "ortho" conjugate-direction update: drop the X-block component
+                Zp = Zm.clone()
+                Zp[:, :m, :] = 0.0
+                keep = active[:, None, None]
+                X = torch.where(keep, S @ Zm, X)
+                P = torch.where(keep, S @ Zp, P)
+                theta = torch.where(active[:, None], ritz_vals[:, :m].to(dtype), theta)
+                rel = torch.where(active[:, None], rel_new, rel)
+                failed = failed | (active & bad_new)
+                its = its + active.to(its.dtype)
+            sweep += 1
+
+    return LobpcgResult(
+        eigenvalues=theta, eigenvectors=X, iterations=its.tolist(), residual_norms=rel,
     )
 
 

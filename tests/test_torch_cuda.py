@@ -355,3 +355,58 @@ def test_joint_step_on_cuda_matches_cpu(cuda_device):
                                           noise.to(cuda_device), 0.5, resolution=(32, 32),
                                           tri_bucket=512)
     assert torch.isfinite(loss) and all(torch.isfinite(x).all() for x in tree_leaves(g))
+
+
+@pytest.mark.cuda
+def test_multipair_step_on_cuda_matches_cpu(cuda_device):
+    """The multi-pair trainer at B = 4 on the card in f32 against the CPU in
+    f64, from the same logits, eigenpairs and targets: each step launches
+    each synthesis kernel once for all four pairs; the first step's losses
+    within 1e-4 and its Adam step within 1e-3 lr; a refresh's eigenvalues
+    within 1e-3 of the CPU's."""
+    from diffsound_torch.audio.oscillator import TraditionalOscillatorParams
+    from diffsound_torch.experiments.material_sync import (
+        MaterialSyncTask, flagship_material_pairs, impulse_forces,
+    )
+    from diffsound_torch.fem.material import Material
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+    from diffsound_torch.parallel.mesh import make_device_mesh
+    from diffsound_torch.parallel.train import MultipairTrainer
+
+    pairs = flagship_material_pairs(4)
+    host = MaterialSyncTask(mesh=cube_tet_mesh(3, 0.5), mode_num=8, frame_num=2000,
+                            device="cpu")
+    gt = torch.cat([host.make_gt(g)[0] for _, g in pairs])
+    model = host._build(pairs[0][0], 2, host.task)
+    eig = model.eigen_decomposition()
+    runs = {}
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        m = host._build(pairs[0][0], 2, host.task) if dev == "cpu" else MaterialSyncTask(
+            mesh=host.mesh, mode_num=8, frame_num=2000)._build(pairs[0][0], 2, host.task)
+        tr = MultipairTrainer(
+            bins=m.bins, ops=m.ops, mesh=make_device_mesh(1, 1, dev),
+            osc=TraditionalOscillatorParams(1, 8, 2000, 32000.0, Material.of(pairs[0][0])),
+            forces=impulse_forces(1, 150, dtype, dev), lr=2e-3)
+        params, opt = tr.init(4, pretrain=False)
+        before = {k: v.detach().clone() for k, v in params.items()}
+        ev = eig.eigenvalues.to(dev, dtype)[None].expand(4, -1).clone()
+        evec = eig.eigenvectors.to(dev, dtype)[None].expand(4, -1, -1).clone()
+        g = gt.to(dev, dtype)
+        counts = (synth_kernel.LAUNCHES, synth_kernel.LAUNCHES_BWD)
+        losses = []
+        for i, refresh in enumerate((False, False, True)):
+            params, opt, loss, ev, evec = tr.step(params, opt, ev, evec, g, refresh=refresh)
+            if i == 0:
+                step = {k: (params[k].detach() - before[k]).double().cpu() for k in params}
+            losses.append(loss.double().cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (synth_kernel.LAUNCHES - counts[0], synth_kernel.LAUNCHES_BWD - counts[1]) \
+                == (3, 3)
+        runs[dev] = dict(losses=losses, step=step, ev=ev.double().cpu())
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert all(torch.isfinite(x).all() for x in card["losses"])
+    assert float((card["losses"][0] / cpu["losses"][0] - 1).abs().max()) < 1e-4
+    assert max(float((card["step"][k] - cpu["step"][k]).abs().max()) for k in cpu["step"]) \
+        < 1e-3 * 2e-3
+    assert float((card["ev"][:, 6:] / cpu["ev"][:, 6:] - 1).abs().max()) < 1e-3
