@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It imports nothing of JAX or of `diffsound_tpu`.  Phases, each of which
 fails the run by raising (the kernel phase runs alone; then phases 3-6 run
 in order in one process, beside phases 7-10, each in a process of its own;
-the leftovers run last):
+the leftovers and the entry run last):
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of every kernel from the sources in the
@@ -137,6 +137,17 @@ the leftovers run last):
    `lobpcg_solver_freq` against ARPACK, `Texture2D.sample` through its mips
    and `EnvironmentLight.from_latlong` against the CPU, and BEM's pulsating
    sphere and 1/r decay in complex64 and complex128.
+12. Entry phase: the flagship forward step (`diffsound_torch.entry`:
+   MaterialBins, Rayleigh-corrected frequencies through the order-2
+   operators, the synthesis, the 5-scale L1) on `cube_tet_mesh(4, 0.5)` at
+   order 2 (2,187 DOF) with random eigen columns, forward and backward once
+   (one launch of each synthesis kernel), its f32 loss and gradients against
+   the CPU's f64 held to 4x the port's own f32 gap on the CPU at the same
+   arguments, floored at the kernels' 2^-22 (the same step with both
+   synthesis kernels' outputs rounded to TF32 must fail the loss gate), its
+   profile; 20 material pairs drawn, the first 16 the anchor's
+   (tests/flagship_pairs.json); `plot_spec` of its signal and
+   `export_mode_viewer` of its mesh's first modes written to chiprun_out/.
 
 The line before the last is one JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -144,6 +155,7 @@ launches on the main path, error, times and bound; the last line is
 and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3054,6 +3066,164 @@ def leftovers_phase(dev):
             raise RuntimeError(f"leftovers: BEM in {model._phi.dtype} fails the analytic checks")
 
 
+
+# The entry phase: the flagship forward step (diffsound_torch/entry.py)
+# on cube_tet_mesh(4, 0.5) at order 2 (2,187 DOF; the bowl is not in the
+# checkout), 16 + 6 random eigen columns, a random (1, 8000) target.  Its
+# float32 loss and gradients on the card are held, against the CPU's float64,
+# to ENTRY_F32_MARGIN times the port's own float32 gap on the CPU at the same
+# arguments, as the parallel step is held, floored at the synthesis kernels'
+# resolution: their 3xTF32 products keep about 2^-22 of each value
+# (csrc/synth.cu), two bits short of float32's, and over seeds 0-9 the card's
+# loss reads 4.2e-7 to 7.7e-7 from the float64 where the CPU's float32 reads
+# 9e-8 to 8e-7; the card's frequencies and synthesis under the CPU's loss read
+# the card's gap (scripts/entry_f32_spread.py).  The frequencies keep about
+# 1e-7; the gradient's gap is a draw of each implementation's rounding of the
+# synthesis, the STFTs and the L1, 3e-4 to 2.2e-2 on the card and 4e-4 to
+# 1.9e-2 on the CPU over those seeds.  The same step with both synthesis
+# kernels' outputs rounded to TF32 must fail the loss gate.
+# JAX_ENTRY_F32_GAP, the JAX package's own float32 gap at the seed-0
+# arguments (scripts/jax_entry_reference.py), is printed beside.
+JAX_ENTRY_F32_GAP = {"loss": 3.018e-08, "youngs_logits": 0.001393, "poisson_logits": 0.001116}
+ENTRY_F32_MARGIN = 4.0
+ENTRY_F32_RESOLUTION = 2.0 ** -22
+ENTRY_VIEWER_MODES = 6
+# the 16 flagship pairs as the port held them in a table before it drew them
+FLAGSHIP_ANCHOR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "flagship_pairs.json")
+
+
+def entry_step(fn, args, device, dtype):
+    """The entry's loss and its gradients in each bin-logit group (float64,
+    on the CPU) at args, cast to dtype on device."""
+    params = {k: v.detach().to(device, dtype).requires_grad_(True) for k, v in args[0].items()}
+    loss = fn(params, *(x.to(device, dtype) for x in args[1:]))
+    loss.backward()
+    return loss.item(), {k: v.grad.double().cpu() for k, v in params.items()}
+
+
+def entry_gaps(run, ref):
+    """`entry_step` run against ref: the loss's relative gap and each
+    group's gradient's relative norm error."""
+    (loss, grads), (loss0, grads0) = run, ref
+    gaps = {"loss": abs(loss / loss0 - 1)}
+    gaps.update({k: float((grads[k] - g).norm() / g.norm()) for k, g in grads0.items()})
+    return gaps
+
+
+def entry_gates(own):
+    """ENTRY_F32_MARGIN times the CPU's own float32 gaps, each at least
+    ENTRY_F32_RESOLUTION: a gap below the synthesis kernels' resolution no
+    pass through them can be held to."""
+    return {k: ENTRY_F32_MARGIN * max(g, ENTRY_F32_RESOLUTION) for k, g in own.items()}
+
+
+@contextlib.contextmanager
+def tf32_rounded_synthesis():
+    """Both synthesis kernels' outputs rounded to TF32's 10-bit mantissa
+    (to nearest): the precision that plain TF32 products keep, where the
+    kernels' 3xTF32 split keeps float32's.  The entry's control."""
+    import torch
+
+    from diffsound_torch.audio import synth_kernel as sk
+
+    def tf32(x):
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    fwd, bwd = sk.synth_kernel, sk.synth_kernel_bwd
+    sk.synth_kernel = lambda *a: tf32(fwd(*a))
+    sk.synth_kernel_bwd = lambda *a: tuple(tf32(x.contiguous()) for x in bwd(*a))
+    try:
+        yield
+    finally:
+        sk.synth_kernel, sk.synth_kernel_bwd = fwd, bwd
+
+
+def entry_phase(out_dir=CHIPRUN_OUT):
+    """`diffsound_torch.entry`'s step on the card: forward and backward once
+    (one launch of each synthesis kernel), its float32 loss and gradients
+    against the CPU's float64 at the same arguments, held to 4x the CPU's
+    own float32 gap there at least the kernels' resolution (`entry_gates`;
+    the TF32 control must fail the loss gate), its profile; the material pairs past 16; `plot_spec` of its
+    signal against its target and `export_mode_viewer` of its mesh's first
+    modes, into out_dir.  Returns the step's launch counts."""
+    import numpy as np
+    import torch
+
+    from diffsound_torch.audio.stft import spectrogram
+    from diffsound_torch.entry import entry, flagship_pieces
+    from diffsound_torch.experiments.material_sync import flagship_material_pairs
+    from diffsound_torch.fem.mesh import surface_triangles
+    from diffsound_torch.models.sound_obj import EigenState
+    from diffsound_torch.solvers.diff_eigs import undamped_frequencies
+    from diffsound_torch.utils.visualize import export_mode_viewer, plot_spec, write_png
+
+    fn, args = entry("cuda")
+    zero_counts()
+    card = entry_step(fn, args, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches != {"synth_constant_modes": 1, "synth_constant_modes_bwd": 1}:
+        raise RuntimeError(f"entry: one forward and backward launched {launches}, not one "
+                           f"of each synthesis kernel")
+
+    cpu64 = entry_step(entry("cpu")[0], args, "cpu", torch.float64)
+    own = entry_gaps(entry_step(entry("cpu", dtype=torch.float32)[0], args, "cpu",
+                                torch.float32), cpu64)
+    with tf32_rounded_synthesis():
+        control = entry_gaps(entry_step(fn, args, "cuda", torch.float32), cpu64)
+    gaps, gates = entry_gaps(card, cpu64), entry_gates(own)
+    log(f"entry: loss {card[0]:.7f} on the card (f32), {cpu64[0]:.7f} on the CPU (f64); "
+        "f32 gaps against the CPU's f64 " + ", ".join(
+            f"{k} {g:.3e} (gate {gates[k]:.3e}; the CPU's own f32 {own[k]:.3e}, the JAX "
+            f"package's {JAX_ENTRY_F32_GAP[k]:.3e}; TF32 control {control[k]:.3e})"
+            for k, g in gaps.items()))
+    if not all(np.isfinite(v) and v <= gates[k] for k, v in gaps.items()):
+        raise RuntimeError("entry: the card's f32 step is beyond its gates against the CPU's f64")
+    if not control["loss"] > gates["loss"]:
+        raise RuntimeError("entry: the TF32 control passes the loss gate")
+
+    def step():
+        fn({k: v.detach().to("cuda").requires_grad_(True) for k, v in args[0].items()},
+           *args[1:]).backward()
+
+    host_ms, device_ms, calls = profile_step("entry step (forward and backward)", step,
+                                             kernels=("synth_fwd_kernel", "synth_bwd_kernel"))
+    log(f"entry step: host {host_ms:.3f} ms, device {device_ms:.3f} ms, {calls:.0f} "
+        f"cudaLaunchKernel calls, synthesis launches {launches}, on {nvidia_smi_line()}")
+
+    pairs = flagship_material_pairs(20)
+    with open(FLAGSHIP_ANCHOR) as f:
+        anchor = [tuple(tuple(m) for m in pair) for pair in json.load(f)]
+    if len(pairs) != 20 or pairs[:16] != anchor:
+        raise RuntimeError("entry: the first 16 of 20 drawn material pairs are not the anchor's")
+    log(f"entry: 20 material pairs drawn, the first 16 the anchor's; pair 19 target E "
+        f"{pairs[19][1][1]:.6g}, nu {pairs[19][1][2]:.6f}")
+
+    model, osc, _, forces = flagship_pieces(device="cuda")
+    params = {k: v.to("cuda") for k, v in args[0].items()}
+    with torch.no_grad():
+        eig = EigenState(args[1], args[2], 0, torch.zeros_like(args[1]))
+        sig, _ = osc(model.get_undamped_freqs(params, eig), forces)
+        spec = lambda x: torch.log(spectrogram(x[0], 512, 128) + 1e-7).cpu().numpy()
+        spec_img = plot_spec(spec(args[3]), spec(sig))
+    os.makedirs(out_dir, exist_ok=True)
+    spec_path = os.path.join(out_dir, "entry_spec.png")
+    write_png(spec_path, spec_img)
+    t0 = time.perf_counter()
+    cold = model.eigen_decomposition(params)
+    modes = slice(model.extra_modes, model.extra_modes + ENTRY_VIEWER_MODES)
+    viewer_path = export_mode_viewer(
+        os.path.join(out_dir, "entry_modes.html"), model.mesh.vertices,
+        surface_triangles(model.mesh.corner_tets()), cold.eigenvectors[:, modes].cpu().numpy(),
+        undamped_frequencies(cold.eigenvalues[modes]).cpu().numpy())
+    sizes = {p: os.path.getsize(p) for p in (spec_path, viewer_path)}
+    log(f"entry: wrote {sizes} (the viewer's {ENTRY_VIEWER_MODES} modes from a cold solve "
+        f"of {time.perf_counter() - t0:.3f} s)")
+    if not all(sizes.values()):
+        raise RuntimeError(f"entry: an empty figure: {sizes}")
+    return launches
+
 # The parallel phase: all 16 flagship pairs at once at the flagship width on
 # cube_tet_mesh(6, 0.3) at order 2 (6,591 DOF; a depth cut from the main
 # path's 20,577: the phase's 50 host ARPACK solves would not fit the time
@@ -3481,6 +3651,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     leftovers_phase(device)
     log(f"phase leftovers: {time.perf_counter() - t_phase:.3f} s")
+    entry_launches = timed_phase("entry", entry_phase)
     log(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
 
     kernels = [{
@@ -3496,7 +3667,8 @@ def main() -> int:
                                 for k, v in real_launches.items()},
                              **{f"shape {k}": v[name] for k, v in shape_launches.items()},
                              "geometry": geometry_launches[name],
-                             **{k: v[name] for k, v in joint_launches.items()}},
+                             **{k: v[name] for k, v in joint_launches.items()},
+                             "entry": entry_launches[name]},
         **figures[name],
         "library_ms": None,
     } for name, replaces in (

@@ -122,3 +122,13 @@ def modal_cache_from_numpy(eigenvalues, q_mu, q_lam, q_m, dtype,
                            device="cpu") -> ModalCache:
     as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
     return ModalCache(as_t(eigenvalues), as_t(q_mu), as_t(q_lam), as_t(q_m))
+
+
+def entry_args_from_jax(args, device="cpu", dtype=PARAM_DTYPE):
+    """The arguments of `__graft_entry__.py::entry` (params, eigenvalues,
+    eigenvectors, gt_audio, forces), as numpy, -> the port's `entry`
+    arguments: the params as leaf tensors, the rest as tensors, all of
+    `dtype` on `device`."""
+    params, *arrays = args
+    as_t = lambda x: torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    return (params_from_jax(params, device, dtype), *(as_t(x) for x in arrays))

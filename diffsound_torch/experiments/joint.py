@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..fem.mesh import write_obj
+from ..fem.mesh import surface_triangles, write_obj
 from ..geometry.joint_task import JointImageAudioTask
 from ..geometry.dmtet import MarchingTets
 from ..render.util import save_image
@@ -167,18 +167,9 @@ def main(argv=None):
     dump_view("final", params)
     if best.get("verts") is not None:
         write_obj(os.path.join(flags.out_dir, "best_mesh.obj"), best["verts"],
-                  _surface_of(best["tets"]))
+                  surface_triangles(best["tets"]))
     logger.close()
     return summary
-
-
-def _surface_of(tets):
-    """Boundary triangles of a tet mesh (faces appearing once)."""
-    faces = np.concatenate([tets[:, [0, 1, 2]], tets[:, [0, 1, 3]], tets[:, [0, 2, 3]],
-                            tets[:, [1, 2, 3]]])
-    _, inv, counts = np.unique(np.sort(faces, axis=1), axis=0, return_inverse=True,
-                               return_counts=True)
-    return faces[counts[inv.reshape(-1)] == 1]
 
 
 if __name__ == "__main__":

@@ -45,45 +45,41 @@ from ..audio.freq_loss import (
 from ..audio.mss_loss import MSSLoss
 from ..audio.oscillator import TraditionalOscillatorParams
 from ..convert import params_from_jax
-from ..fem.material import Material, lame_params
+from ..fem.material import Material, MatSet, lame_params
 from ..fem.mesh import TetMesh
 from ..models.modal_fit import ModalNewtonFitter
 from ..models.sound_obj import build_model
 from ..solvers.diff_eigs import undamped_frequencies
+from ..utils import prng
 from ..utils.logging import MetricLogger
 
 EIGEN_DECOMPOSE_CYCLE = 15
 EARLY_LOSS_TYPES = ("freq_chamfer", "geomloss")
 RECIPES = ("newton", "adam", "reference")
 
-# The 16 flagship (init, target) material pairs: the JAX package's
-# random_material_pairs(jax.random.PRNGKey(0), 16), generated once and kept
-# as data (its draws are prefix-stable, so the first n equal a draw of n).
-FLAGSHIP_PAIRS = (
-    ((2700, 97295319819.09, 0.29557667667446863, 6, 1e-07), (2700, 17256192999.788445, 0.3251706648746635, 6, 1e-07)),
-    ((2700, 38366367389.5272, 0.36386355753292665, 6, 1e-07), (2700, 93155395200.52727, 0.24389401898402316, 6, 1e-07)),
-    ((2700, 69498675142.34724, 0.1639605429290496, 6, 1e-07), (2700, 76055711062.30048, 0.3933749513507332, 6, 1e-07)),
-    ((2700, 99224813051.95615, 0.24397212836844578, 6, 1e-07), (2700, 62150521984.010155, 0.15808051405588308, 6, 1e-07)),
-    ((2700, 35426938762.57178, 0.2509717121588867, 6, 1e-07), (2700, 63784270537.29928, 0.1410656978001336, 6, 1e-07)),
-    ((2700, 41993989564.96659, 0.1836864013533659, 6, 1e-07), (2700, 73002396584.73997, 0.18694280487979964, 6, 1e-07)),
-    ((2700, 57273140420.307945, 0.20181802875926363, 6, 1e-07), (2700, 82505808757.55249, 0.15405970642555145, 6, 1e-07)),
-    ((2700, 39034751474.70484, 0.36716872934618205, 6, 1e-07), (2700, 90052303158.31125, 0.359995708237865, 6, 1e-07)),
-    ((2700, 15280996698.146313, 0.29531188822781707, 6, 1e-07), (2700, 16865099327.210386, 0.25268569416676856, 6, 1e-07)),
-    ((2700, 65359998469.818344, 0.12739626281129443, 6, 1e-07), (2700, 88557225177.73997, 0.2111466578923133, 6, 1e-07)),
-    ((2700, 95925311360.8303, 0.1570314881475178, 6, 1e-07), (2700, 30397544226.260788, 0.12519907661186502, 6, 1e-07)),
-    ((2700, 85488981225.5374, 0.27188558981707633, 6, 1e-07), (2700, 69078088904.25967, 0.23182274998156535, 6, 1e-07)),
-    ((2700, 81355395185.5153, 0.21574188477514236, 6, 1e-07), (2700, 36302083295.06569, 0.16047461792217832, 6, 1e-07)),
-    ((2700, 26031542048.759346, 0.1652058054031535, 6, 1e-07), (2700, 69366079825.3482, 0.12173036156844547, 6, 1e-07)),
-    ((2700, 43578251674.728195, 0.13617554857598624, 6, 1e-07), (2700, 66642861792.01294, 0.39671327807181467, 6, 1e-07)),
-    ((2700, 79228443263.87845, 0.3819647183225525, 6, 1e-07), (2700, 51578376155.320816, 0.31130971106284794, 6, 1e-07)),
-)
+def random_material_pairs(key, n: int = 16):
+    """n random (init, target) materials within [RandomMin, RandomMax]
+    (material_sync_train.py:72-89), drawn from the uint32[2] key `key`
+    exactly as the JAX package's random_material_pairs draws them."""
+    lo, hi = MatSet.RandomMin, MatSet.RandomMax
+    ks = prng.split(key, 4)
+    draw = lambda k, a, b: prng.uniform(k, (n,)) * (b - a) + a
+    init_y, tgt_y = draw(ks[0], lo[1], hi[1]), draw(ks[1], lo[1], hi[1])
+    init_p, tgt_p = draw(ks[2], lo[2], hi[2]), draw(ks[3], lo[2], hi[2])
+    pairs = []
+    for i in range(n):
+        init, tgt = list(lo), list(lo)
+        init[1], init[2] = float(init_y[i]), float(init_p[i])
+        tgt[1], tgt[2] = float(tgt_y[i]), float(tgt_p[i])
+        pairs.append((tuple(init), tuple(tgt)))
+    return pairs
 
 
 def flagship_material_pairs(n: int = 16):
-    """The first n flagship (init, target) pairs."""
-    if not 0 <= n <= len(FLAGSHIP_PAIRS):
-        raise ValueError(f"the flagship table holds {len(FLAGSHIP_PAIRS)} pairs, asked for {n}")
-    return list(FLAGSHIP_PAIRS[:n])
+    """The first n flagship (init, target) pairs: the draw from key 0, which
+    the CLI trains (the draws are prefix-stable: the first n of a longer
+    draw are these)."""
+    return random_material_pairs(prng.PRNGKey(0), n)
 
 
 def impulse_forces(audio_num: int, force_frame_num: int, dtype=torch.float32, device="cpu"):

@@ -149,6 +149,16 @@ def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray):
             f.write(f"f {int(t[0]) + 1} {int(t[1]) + 1} {int(t[2]) + 1}\n")
 
 
+
+def surface_triangles(tets: np.ndarray) -> np.ndarray:
+    """The boundary triangles of a tet mesh (N, 4): the faces that appear in
+    one tet only, each with its tet's vertex order."""
+    faces = np.concatenate([tets[:, [0, 1, 2]], tets[:, [0, 1, 3]], tets[:, [0, 2, 3]],
+                            tets[:, [1, 2, 3]]])
+    _, inv, counts = np.unique(np.sort(faces, axis=1), axis=0, return_inverse=True,
+                               return_counts=True)
+    return faces[counts[inv.reshape(-1)] == 1]
+
 def read_comsol_txt(path: str):
     """COMSOL text export: comment lines (%), vertex block, %-line, tet block
     with 1-based indices."""

@@ -383,6 +383,10 @@ class ThicknessTask(ShapeTaskBase):
         self.sdf = mesh_signed_distance(self.grid_verts, mesh_verts, mesh_faces, self.device)
         self.max_thickness = float(self.sdf.max())
 
+    def thickness_value(self, params):
+        """The shell thickness the bins' coefficient stands for."""
+        return self.bins.value(params) * self.max_thickness
+
     def _coef_sdf(self, c):
         return self.sdf, c * self.max_thickness
 

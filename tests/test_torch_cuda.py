@@ -1,8 +1,8 @@
 """The port on the card: the synthesis kernels, forward and backward, against
 their plain versions (also at the material_real GT bank's tables), their
 autograd function and dispatch, short material_sync and material_real
-runs on CUDA, the shape march, the geometry loss-gradient pass and the
-joint task's loss-gradient pass.
+runs on CUDA, the shape march, the geometry loss-gradient pass, the
+joint task's loss-gradient pass and the flagship forward step.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA.  tests/conftest.py imports JAX, so
@@ -410,3 +410,26 @@ def test_multipair_step_on_cuda_matches_cpu(cuda_device):
     assert max(float((card["step"][k] - cpu["step"][k]).abs().max()) for k in cpu["step"]) \
         < 1e-3 * 2e-3
     assert float((card["ev"][:, 6:] / cpu["ev"][:, 6:] - 1).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_entry_step_on_cuda_matches_cpu(cuda_device):
+    """The flagship forward step (`diffsound_torch.entry`) on the card: one
+    forward and backward launch each synthesis kernel once; its f32 loss and
+    gradients against the CPU's f64 at the same arguments within
+    chip_smoke's gates (4x the CPU's own f32 gap there, at least the
+    kernels' 2^-22)."""
+    import chip_smoke
+    from diffsound_torch.entry import entry
+
+    fn, args = entry("cuda")
+    counts = (synth_kernel.LAUNCHES, synth_kernel.LAUNCHES_BWD)
+    card = chip_smoke.entry_step(fn, args, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    assert (synth_kernel.LAUNCHES - counts[0], synth_kernel.LAUNCHES_BWD - counts[1]) == (1, 1)
+    cpu64 = chip_smoke.entry_step(entry("cpu")[0], args, "cpu", torch.float64)
+    own = chip_smoke.entry_gaps(chip_smoke.entry_step(entry("cpu", dtype=torch.float32)[0], args,
+                                                      "cpu", torch.float32), cpu64)
+    gates = chip_smoke.entry_gates(own)
+    for k, gap in chip_smoke.entry_gaps(card, cpu64).items():
+        assert gap <= gates[k], k

@@ -22,6 +22,7 @@ from diffsound_torch.experiments import material_sync
 from diffsound_torch.experiments.material_real import fit_gt_oscillator, train_material_real
 from diffsound_torch.experiments.material_sync import MaterialSyncTask, flagship_material_pairs
 from diffsound_torch.acoustics import BEMModel
+from diffsound_torch.entry import entry, flagship_pieces
 from diffsound_torch.experiments import geometry, joint, morphing, thickness
 from diffsound_torch.fem.assembly import FEMOperators
 from diffsound_torch.fem.mesh import cube_tet_mesh, icosphere, write_msh, write_obj
@@ -64,7 +65,8 @@ def test_port_imports_no_jax():
             "diffsound_torch/experiments/geometry.py", "diffsound_torch/acoustics/bem.py",
             "diffsound_torch/fem/transform.py", "diffsound_torch/render/rasterize.py",
             "diffsound_torch/render/light.py", "diffsound_torch/geometry/joint_task.py",
-            "diffsound_torch/geometry/dlmesh.py", "diffsound_torch/experiments/joint.py"} <= names
+            "diffsound_torch/geometry/dlmesh.py", "diffsound_torch/experiments/joint.py",
+            "diffsound_torch/entry.py", "diffsound_torch/utils/prng.py"} <= names
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
         for p in sources for m in _imported_modules(p)
@@ -80,7 +82,7 @@ def test_port_imports_no_jax():
                                    GeometryTask.__init__, SDFGeometry.__init__,
                                    FEMOperators.__init__, BEMModel.__init__,
                                    JointImageAudioTask.__init__, SplitSDFGeometry.__init__,
-                                   DLMesh.__init__])
+                                   DLMesh.__init__, entry, flagship_pieces])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
