@@ -127,7 +127,7 @@ the leftovers and the entry run last):
    params against host ARPACK for every pair (WARM_GATE), one step for all
    pairs in f32 on the card against the port's f64 on the CPU
    (STEP_GATES), the B = 16 step's and a refresh's profiles, a refresh
-   under `device_trace` with one `lobpcg_iter` span per iteration,
+   under `device_trace` with one `diffsound.lobpcg.sweep` span an iteration,
    `BatchedModalNewton` (12 rounds) against the JAX package's batched fit
    (2% in E, 0.03 in nu), the CLI's `parallel` recipe (16 pairs, 30 epochs)
    and `dryrun_multichip(1)`.
@@ -3398,8 +3398,8 @@ def refresh_kernels(tr, params, evec, top: int = 8):
 def parallel_profiles(res):
     """The B = 16 L1 step and one refresh: host and device ms, launches,
     LOBPCG iterations; then one refresh under device_trace with the solver's
-    profiler option: its Chrome trace must hold one lobpcg_iter span per
-    iteration."""
+    profiler option: its Chrome trace must hold one diffsound.lobpcg.sweep
+    span per iteration."""
     import torch
 
     tr = res["trainer"]
@@ -3423,11 +3423,12 @@ def parallel_profiles(res):
         mib = os.path.getsize(trace) / 2**20
         with open(trace) as f:
             spans = [e for e in json.load(f)["traceEvents"]
-                     if e.get("name") == "lobpcg_iter" and e.get("cat") == "user_annotation"]
-    log(f"parallel refresh under device_trace: {len(spans)} lobpcg_iter spans for "
+                     if e.get("name") == "diffsound.lobpcg.sweep"
+                     and e.get("cat") == "user_annotation"]
+    log(f"parallel refresh under device_trace: {len(spans)} diffsound.lobpcg.sweep spans for "
         f"{max(its)} iterations of the batch in a {mib:.1f} MiB Chrome trace")
     if len(spans) != max(its):
-        raise RuntimeError("parallel: the profiled refresh's trace lacks its lobpcg_iter spans")
+        raise RuntimeError("parallel: the profiled refresh's trace lacks its sweep spans")
     return dict(step_host_ms=host_ms, step_device_ms=device_ms, step_launches=launches,
                 refresh_host_ms=refresh[0], refresh_device_ms=refresh[1], refresh_iters=its)
 

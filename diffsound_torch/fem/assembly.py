@@ -25,6 +25,11 @@ elements into zero contributions.
 Counterpart of `diffsound_tpu/fem/assembly.py`; the split-bf16 einsums of
 the JAX package (`fem/precision.py`) are a TPU workaround and are not
 carried over: f32 with TF32 off is exact f32 on the GPU.
+
+While `utils.profiler.tracing()` is open, each K apply is a
+`diffsound.fem.k_apply` span and each M apply a `diffsound.fem.m_apply`
+span, and both count their calls and columns (`fem.k_apply.calls`,
+`fem.k_apply.cols`, `fem.m_apply.*`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiler import count, span
 from .quadrature import gauss_tet_quadrature
 from .shape_func import CORNER_NODES, num_nodes_for_order, shape_function, shape_function_grad
 
@@ -245,9 +251,12 @@ def _scatter(ops, ye: torch.Tensor) -> torch.Tensor:
 
 def k_matvec(ops: ElementOps, x: torch.Tensor, mu, lam) -> torch.Tensor:
     """K @ X for X (3V, k): two batched matmuls + gather-sum."""
-    xe = _gather(ops, x)
-    ye = mu * torch.bmm(ops.k_mu, xe) + lam * torch.bmm(ops.k_lam, xe)
-    return _scatter(ops, ye)
+    count("fem.k_apply.calls")
+    count("fem.k_apply.cols", x.shape[1])
+    with span("diffsound.fem.k_apply"):
+        xe = _gather(ops, x)
+        ye = mu * torch.bmm(ops.k_mu, xe) + lam * torch.bmm(ops.k_lam, xe)
+        return _scatter(ops, ye)
 
 
 @dataclass(frozen=True)
@@ -267,17 +276,23 @@ def freeze_stiffness(ops: ElementOps, mu, lam) -> FrozenStiffness:
 
 def k_matvec_frozen(ops: ElementOps, fz: FrozenStiffness, x: torch.Tensor) -> torch.Tensor:
     """K @ X with a pre-frozen material (see FrozenStiffness)."""
-    return _scatter(ops, torch.bmm(fz.ke, _gather(ops, x)))
+    count("fem.k_apply.calls")
+    count("fem.k_apply.cols", x.shape[1])
+    with span("diffsound.fem.k_apply"):
+        return _scatter(ops, torch.bmm(fz.ke, _gather(ops, x)))
 
 
 def m_matvec(ops: ElementOps, x: torch.Tensor, density) -> torch.Tensor:
     """M @ X for X (3V, k)."""
     k = x.shape[1]
+    count("fem.m_apply.calls")
+    count("fem.m_apply.cols", k)
     E, N = ops.tets.shape
-    xe = x.reshape(ops.num_vertices, 3, k)[ops.tets].reshape(E, N, 3 * k)
-    ye = torch.matmul(ops.mref, xe)  # (E, N, 3k)
-    ye = ye * (density * ops.mass_scale)[:, None, None]
-    return _scatter(ops, ye.reshape(E, 3 * N, k))
+    with span("diffsound.fem.m_apply"):
+        xe = x.reshape(ops.num_vertices, 3, k)[ops.tets].reshape(E, N, 3 * k)
+        ye = torch.matmul(ops.mref, xe)  # (E, N, 3k)
+        ye = ye * (density * ops.mass_scale)[:, None, None]
+        return _scatter(ops, ye.reshape(E, 3 * N, k))
 
 
 def k_diag(ops: ElementOps, mu, lam) -> torch.Tensor:

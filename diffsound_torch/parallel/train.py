@@ -29,6 +29,11 @@ and the element arrays are split over ep (`ShardedFEM`).  Per step:
 
 The oscillator uses the init material's (alpha, beta) for every pair, as
 the JAX trainer does.
+
+While `utils.profiler.tracing()` is open, a step is a `diffsound.step`
+span holding `diffsound.refresh` (the batched solve), `diffsound.forms`,
+`diffsound.synth`, `diffsound.loss`, `diffsound.backward` and
+`diffsound.adam`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..fem.assembly import ElementOps
 from ..models.material_model import MaterialBins
 from ..solvers.diff_eigs import undamped_frequencies
 from ..solvers.lobpcg import lobpcg_batched
+from ..utils.profiler import span
 from .mesh import DeviceMesh
 from .ops import ShardedFEM
 
@@ -101,7 +107,7 @@ class MultipairTrainer:
         """Batched warm solve at per-pair Lame values mu, lam (B,) from
         eigvec_b (B, n, k) on the diagonally scaled pencil.  Returns
         (eigval_b, eigvec_b, LOBPCG iterations per pair)."""
-        with torch.no_grad():
+        with torch.no_grad(), span("diffsound.refresh"):
             dt = eigvec_b.dtype
             mu, lam = mu.to(dt), lam.to(dt)
             d = self.fem.k_diag(mu, lam)  # (n, B)
@@ -122,7 +128,7 @@ class MultipairTrainer:
     def quadratic_forms(self, eigvec_b):
         """(q_mu, q_lam, q_m), each (B, k), of every pair's eigenvectors."""
         B, n, k = eigvec_b.shape
-        with torch.no_grad():
+        with torch.no_grad(), span("diffsound.forms"):
             q = self.fem.quadratic_forms(eigvec_b.permute(1, 0, 2).reshape(n, B * k))
         return q.reshape(3, B, k)
 
@@ -161,14 +167,17 @@ class MultipairTrainer:
         with the early-phase geomloss.  Updates params_b in place through
         opt_b.  Returns (params_b, opt_b, losses (B,) of all pairs gathered
         over dp, eigval_b, eigvec_b)."""
-        if refresh:
-            eigval_b, eigvec_b, self.last_refresh_iters = self.refresh(params_b, eigvec_b)
-        opt_b.zero_grad(set_to_none=True)
-        losses, _, _ = self.forward(params_b, eigval_b, eigvec_b, gt_b, early)
-        losses.sum().backward()
-        self.bins.mask_grads(params_b)
-        opt_b.step()
-        return params_b, opt_b, self.mesh.gather_pairs(losses.detach()), eigval_b, eigvec_b
+        with span("diffsound.step"):
+            if refresh:
+                eigval_b, eigvec_b, self.last_refresh_iters = self.refresh(params_b, eigvec_b)
+            opt_b.zero_grad(set_to_none=True)
+            losses, _, _ = self.forward(params_b, eigval_b, eigvec_b, gt_b, early)
+            with span("diffsound.backward"):
+                losses.sum().backward()
+            with span("diffsound.adam"):
+                self.bins.mask_grads(params_b)
+                opt_b.step()
+            return params_b, opt_b, self.mesh.gather_pairs(losses.detach()), eigval_b, eigvec_b
 
     def forward(self, params_b, eigval_b, eigvec_b, gt_b, early: bool = False):
         """The differentiable part of a step for this rank's pairs: (losses
@@ -180,15 +189,17 @@ class MultipairTrainer:
         mu, lam = mu.to(ev.dtype)[:, None], lam.to(ev.dtype)[:, None]
         lams = ev + mu * q_mu + lam * q_lam - ev * q_m
         freqs = undamped_frequencies(lams[:, self.extra_modes:])
-        sig, damped = self.osc(freqs, self.forces, dtype=gt.dtype)
-        if early:
-            losses = torch.stack([
-                self.loss_early(sig[b:b + 1], gt[b:b + 1], damped[b], 1.0)
-                for b in range(sig.shape[0])
-            ])
-        else:
-            losses = self.loss(sig, None, damped, 1.0, target_cache=self._target_cache(gt),
-                               per_row=True)
+        with span("diffsound.synth"):
+            sig, damped = self.osc(freqs, self.forces, dtype=gt.dtype)
+        with span("diffsound.loss"):
+            if early:
+                losses = torch.stack([
+                    self.loss_early(sig[b:b + 1], gt[b:b + 1], damped[b], 1.0)
+                    for b in range(sig.shape[0])
+                ])
+            else:
+                losses = self.loss(sig, None, damped, 1.0,
+                                   target_cache=self._target_cache(gt), per_row=True)
         return losses, freqs, sig
 
     def youngs_poisson(self, params_b):

@@ -26,6 +26,14 @@ convergence test).
 the counterpart of `jax.vmap(lobpcg)` in the JAX package's parallel
 trainer, with vmap's semantics (each member iterates until its own exit
 test passes, then its state freezes).
+
+While `utils.profiler.tracing()` is open, each iteration of either solver
+is a `diffsound.lobpcg.sweep` span and counts `lobpcg.sweeps`,
+`lobpcg.pair_sweeps` (the batch's members) and `lobpcg.pair_sweeps_active`
+(the members still iterating, read with the exit test's one host sync);
+the batched solver also spans its exit test (`diffsound.lobpcg.exit`),
+orthonormalisation (`diffsound.lobpcg.orth`) and `eigh`
+(`diffsound.lobpcg.eigh`).
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+
+from ..utils.profiler import count, device_trace, span, tracing
 
 # converged guard columns sit within about 2x of the wanted block's largest
 # Ritz value; the residual scale counts guards up to this multiple of it
@@ -129,9 +139,10 @@ def lobpcg(
     num_wanted: converge on the first `num_wanted` columns only; the rest
         are guard vectors whose residuals never gate the exit.
     profiler: a trace directory: the solve runs under
-        `utils.profiler.device_trace(profiler)`, each iteration in a
-        `lobpcg_iter` span, with a host line per iteration (max relative
-        residual, milliseconds after a device sync).
+        `utils.profiler.device_trace(profiler)` with `tracing()` open, so
+        each iteration is a `diffsound.lobpcg.sweep` span, and prints a host
+        line per iteration (max relative residual, milliseconds after a
+        device sync).
     """
     with torch.no_grad():
         return _lobpcg(
@@ -141,31 +152,31 @@ def lobpcg(
 
 
 class _Spans:
-    """The profiler option's per-iteration spans: no-ops without a trace
-    directory."""
+    """Each iteration's `diffsound.lobpcg.sweep` span, and the profiler
+    option: with a trace directory, the solve traced with `tracing()` open
+    and a host line per iteration after a device sync."""
 
     def __init__(self, profiler: Optional[str], device):
         self.profiler, self.device = profiler, device
 
-    def trace(self):
-        if self.profiler is None:
-            return contextlib.nullcontext()
-        from ..utils.profiler import device_trace
-
-        return device_trace(self.profiler)
-
     @contextlib.contextmanager
-    def iteration(self, it: int, rel_fn):
+    def trace(self):
         if self.profiler is None:
             yield
             return
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("lobpcg_iter"):
+        with device_trace(self.profiler), tracing():
             yield
-            if self.device.type == "cuda":
+
+    @contextlib.contextmanager
+    def iteration(self, it: int, rel_fn):
+        t0 = time.perf_counter()
+        with span("diffsound.lobpcg.sweep"):
+            yield
+            if self.profiler is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        print(f"  lobpcg iter {it + 1}: max rel resid {float(rel_fn().max()):.3e} "
-              f"({(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
+        if self.profiler is not None:
+            print(f"  lobpcg iter {it + 1}: max rel resid {float(rel_fn().max()):.3e} "
+                  f"({(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
 
 
 def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
@@ -200,6 +211,9 @@ def _lobpcg(a_fn, b_fn, x0, precond_fn, max_iters, tol, gram_dtype, seed,
     spans = _Spans(profiler, device)
     with spans.trace():
         while it < max_iters and float(rel[:nw].max()) > tol:
+            count("lobpcg.sweeps")
+            count("lobpcg.pair_sweeps")
+            count("lobpcg.pair_sweeps_active")
             with spans.iteration(it, lambda: rel[:nw]):
                 if not reuse_products:
                     AX = a_fn(X)
@@ -274,7 +288,6 @@ def _chol_inv_t_batched(G: torch.Tensor):
 def _b_orthonormalize_batched(S, BS, gram_dtype):
     """`_b_orthonormalize` on (B, n, c) blocks; also returns whether any
     member's Cholesky failed."""
-    bad = torch.zeros(S.shape[0], dtype=torch.bool, device=S.device)
 
     def one_pass(S, BS):
         G = S.to(gram_dtype).mT @ BS.to(gram_dtype)
@@ -288,9 +301,11 @@ def _b_orthonormalize_batched(S, BS, gram_dtype):
         Linv_t, dc = Linv_t.to(S.dtype), d.to(S.dtype)[:, None, :]
         return (S * dc) @ Linv_t, (BS * dc) @ Linv_t, info != 0
 
-    S, BS, bad1 = one_pass(S, BS)
-    S, BS, bad2 = one_pass(S, BS)
-    return S, BS, bad | bad1 | bad2
+    with span("diffsound.lobpcg.orth"):
+        bad = torch.zeros(S.shape[0], dtype=torch.bool, device=S.device)
+        S, BS, bad1 = one_pass(S, BS)
+        S, BS, bad2 = one_pass(S, BS)
+        return S, BS, bad | bad1 | bad2
 
 
 def lobpcg_batched(
@@ -331,7 +346,9 @@ def _lobpcg_batched(a_fn, b_fn, x0, max_iters, tol, profiler):
         G = 0.5 * (G + G.mT)
         # frozen members may hold a degenerate Gram; eigh sees the identity
         eye = torch.eye(G.shape[-1], dtype=gram_dtype, device=device)
-        return torch.linalg.eigh(torch.where(active[:, None, None], G, eye))
+        G = torch.where(active[:, None, None], G, eye)
+        with span("diffsound.lobpcg.eigh"):
+            return torch.linalg.eigh(G)
 
     every = torch.ones(B, dtype=torch.bool, device=device)
     X, BX, failed = _b_orthonormalize_batched(x0, b_fn(x0), gram_dtype)
@@ -346,14 +363,18 @@ def _lobpcg_batched(a_fn, b_fn, x0, max_iters, tol, profiler):
     sweep = 0
     with spans.trace():
         while True:
-            active = (its < max_iters) & (rel.amax(dim=1) > tol)
-            any_active, any_failed = torch.stack([active.any(), failed.any()]).tolist()
-            if any_failed:
+            with span("diffsound.lobpcg.exit"):
+                active = (its < max_iters) & (rel.amax(dim=1) > tol)
+                n_active, n_failed = torch.stack([active.sum(), failed.sum()]).tolist()
+            if n_failed:
                 # where `lobpcg`'s Cholesky raises
                 raise torch.linalg.LinAlgError(
                     "lobpcg_batched: a member's B-Gram is not positive definite")
-            if not any_active:
+            if not n_active:
                 break
+            count("lobpcg.sweeps")
+            count("lobpcg.pair_sweeps", B)
+            count("lobpcg.pair_sweeps_active", n_active)
             with spans.iteration(sweep, lambda: rel):
                 AX, BX = a_fn(X), b_fn(X)
                 R = AX - BX * theta[:, None, :]

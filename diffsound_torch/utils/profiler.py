@@ -1,75 +1,63 @@
-"""Host-side timers and a torch.profiler trace hook.
+"""Spans and counters inside the port, and a torch.profiler trace hook.
 
-Counterpart of `diffsound_tpu/utils/profiler.py`: named `tick`/`tock`
-timers with a running summary, a context-manager `Timer`, and
-`device_trace`, which records a torch.profiler trace of a block and writes
-it as a Chrome trace (`trace.json`, readable in chrome://tracing or
-Perfetto; no TensorBoard plugin needed).  `block_on` takes a tensor and
-synchronizes its CUDA device before the clock is read, so the time covers
-the work queued on the card; on the CPU it is a no-op.
+`tracing()` is the one switch.  While it is open, `span(name)` is a
+`torch.profiler.record_function` scope, so a profiler running around it
+records the span in kineto's event stream, on the clock of the CUDA
+kernel, copy and launch records, and `count(name, n)` adds n to an
+in-memory integer counter that `counters()` returns.  While it is closed,
+`span` returns one shared no-op context and `count` returns at once: the
+cost at a span site is one flag test.  Counters take only values the host
+already holds; none reads the device.
+
+`device_trace` records a torch.profiler trace of a block and writes it as
+a Chrome trace (`trace.json`, readable in chrome://tracing or Perfetto; no
+TensorBoard plugin needed).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from collections import defaultdict
 
 import torch
 
-_ticks = {}
-_accum = defaultdict(float)
+_NOOP = contextlib.nullcontext()
+_on = False
 _counts = defaultdict(int)
 
 
-def _sync(block_on):
-    if torch.is_tensor(block_on) and block_on.is_cuda:
-        torch.cuda.synchronize(block_on.device)
+@contextlib.contextmanager
+def tracing():
+    """Record spans and counters inside the block.  The outermost entry
+    resets the counters; a nested entry keeps them."""
+    global _on
+    outer = not _on
+    if outer:
+        _counts.clear()
+    _on = True
+    try:
+        yield
+    finally:
+        if outer:
+            _on = False
 
 
-def tick(name: str):
-    _ticks[name] = time.perf_counter()
+def span(name: str):
+    """A `record_function(name)` scope while `tracing()` is open, else a
+    shared no-op context."""
+    return torch.profiler.record_function(name) if _on else _NOOP
 
 
-def tock(name: str, block_on=None, verbose: bool = True) -> float:
-    """Stop the named timer and return its seconds; `block_on` (a tensor)
-    waits for its device first."""
-    _sync(block_on)
-    dt = time.perf_counter() - _ticks[name]
-    _accum[name] += dt
-    _counts[name] += 1
-    if verbose:
-        print(f"[tock] {name}: {dt * 1000:.2f} ms")
-    return dt
+def count(name: str, n: int = 1):
+    """Add n to the counter `name` while `tracing()` is open."""
+    if _on:
+        _counts[name] += n
 
 
-def timing_summary():
-    return {
-        k: {"total_s": _accum[k], "count": _counts[k], "mean_ms": 1000 * _accum[k] / _counts[k]}
-        for k in _accum
-    }
-
-
-class Timer:
-    """Context-manager timer; `block_on` (a tensor) waits for its device at
-    exit."""
-
-    def __init__(self, name: str = "", block_on=None, verbose: bool = False):
-        self.name = name
-        self.block_on = block_on
-        self.verbose = verbose
-        self.elapsed = 0.0
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        _sync(self.block_on)
-        self.elapsed = time.perf_counter() - self.t0
-        if self.verbose:
-            print(f"[timer] {self.name}: {self.elapsed * 1000:.2f} ms")
+def counters() -> dict:
+    """The counters recorded since the outermost `tracing()` was entered."""
+    return dict(_counts)
 
 
 @contextlib.contextmanager

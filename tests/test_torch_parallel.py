@@ -38,7 +38,6 @@ from diffsound_torch.fem.mesh import cube_tet_mesh, write_msh
 from diffsound_torch.parallel.mesh import make_device_mesh
 from diffsound_torch.parallel.ops import ShardedFEM, pad_element_ops
 from diffsound_torch.solvers.lobpcg import lobpcg, lobpcg_batched
-from diffsound_torch.utils import profiler
 
 torch.set_num_threads(2)
 
@@ -351,18 +350,11 @@ def test_parallel_cli_raises_without_cuda(tmp_path, monkeypatch):
 def _spans(trace_dir):
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    return [e for e in events if e.get("name") == "lobpcg_iter"
+    return [e for e in events if e.get("name") == "diffsound.lobpcg.sweep"
             and e.get("cat") == "user_annotation"]
 
 
 def test_profiler_timers_and_lobpcg_traces(tmp_path, capsys):
-    with profiler.Timer("t", block_on=torch.zeros(1)) as t:
-        sum(range(1000))
-    assert t.elapsed > 0
-    profiler.tick("x")
-    assert profiler.tock("x", verbose=False) >= 0
-    assert profiler.timing_summary()["x"]["count"] >= 1
-
     fns, x0 = _pencils()
     res = lobpcg(*fns[0], x0, max_iters=20, tol=1e-8, profiler=str(tmp_path / "serial"))
     assert res.iterations == 20 and len(_spans(tmp_path / "serial")) == 20
