@@ -413,7 +413,148 @@ def kernel_phase(device):
             }
     log("kernel synth, synth_bwd: no single PyTorch call computes this sum of damped "
         "sinusoids or its gradient, so there is no library time (library_ms null)")
+    flagship["element_apply"] = element_apply_figures(device)
     return flagship
+
+
+# The batched refresh's applies in the benchmark's cells: (cube, order,
+# pairs, columns a pair), 59,049 DOF at both orders; the solve applies K and
+# M to X (22 columns a pair) and to S = [X | R | P] (66).
+ELEMENT_APPLY_SHAPES = ((13, 2, 16, 22), (13, 2, 16, 66), (26, 1, 16, 22), (26, 1, 16, 66),
+                        (13, 2, 64, 22), (13, 2, 64, 66))
+
+
+def assembled_operators(ops):
+    """K_mu, K_lam and M (unit density) of `ops` assembled as (3V, 3V) CSR
+    matrices of its dtype, each entry summed in float64 and rounded once:
+    the operators a sparse library applies."""
+    import torch
+
+    E, N = ops.tets.shape
+    n = 3 * ops.num_vertices
+    dofs = (3 * ops.tets[:, :, None] + torch.arange(3, device=ops.tets.device)).reshape(E, 3 * N)
+    rows = dofs[:, :, None].expand(E, 3 * N, 3 * N).reshape(-1)
+    cols = dofs[:, None, :].expand(E, 3 * N, 3 * N).reshape(-1)
+    mblocks = ops.mass_scale.double()[:, None, None] * torch.kron(
+        ops.mref.double(), torch.eye(3, dtype=torch.float64, device=ops.mref.device))
+
+    def csr(blocks):
+        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), blocks.double().reshape(-1),
+                                      (n, n)).coalesce()
+        return coo.to(ops.k_mu.dtype).to_sparse_csr()
+
+    return csr(ops.k_mu), csr(ops.k_lam), csr(mblocks)
+
+
+def element_apply_figures(device):
+    """The element-apply kernel (`fem/element_apply.py`), K and M with the
+    solve's Jacobi scaling, at the cells' apply shapes: every pair against
+    the plain version in float64, one pair at a time (gate: (L + 4) 2^-24
+    of |K| |X|, L the largest valence times 3N), two calls bit-identical;
+    its device time against the count of `portbench/counts/element_apply.py`
+    at the H100's peaks, the plain version's (the chain the trainer ran
+    before the kernel) and a sparse library's: `torch.sparse.mm` (cuSPARSE)
+    with the assembled K_mu, K_lam and M in CSR, the same function, whose
+    error is logged against the same gate.  Returns the figures of one K
+    and one M apply at (13, 2, 16, 66)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench"))
+    from counts import element_apply as counts, peaks
+
+    from diffsound_torch.fem import assembly, element_apply as ea
+    from diffsound_torch.fem.mesh import cube_tet_mesh
+
+    out, built = {}, {}
+    for n, order, B, k in ELEMENT_APPLY_SHAPES:
+        if (n, order) not in built:
+            mesh = cube_tet_mesh(n, 0.3)
+            mesh = mesh.to_high_order(2) if order == 2 else mesh
+            ops = assembly.build_element_ops(
+                torch.as_tensor(mesh.vertices, dtype=torch.float32, device=device), mesh.tets,
+                order)
+            f64 = lambda t, a: t.double().abs() if a else t.double()
+            o64 = [assembly.ElementOps(
+                tets=ops.tets, k_mu=f64(ops.k_mu, a), k_lam=f64(ops.k_lam, a),
+                mass_scale=f64(ops.mass_scale, a), mref=f64(ops.mref, a),
+                num_vertices=ops.num_vertices, gather_idx=ops.gather_idx) for a in (False, True)]
+            built[(n, order)] = (ops, ea.apply_plan(ops), o64, assembled_operators(ops))
+        ops, plan, o64, (K_mu, K_lam, M) = built[(n, order)]
+        E, N = ops.tets.shape
+        V = ops.num_vertices
+        rng = np.random.default_rng(B * k)
+        E_, nu = 10.0 ** rng.uniform(10, 11, B), rng.uniform(0.1, 0.4, B)
+        mu = torch.as_tensor(E_ / (2 * (1 + nu)), dtype=torch.float32, device=device)
+        lam = torch.as_tensor(E_ * nu / ((1 + nu) * (1 - 2 * nu)), dtype=torch.float32,
+                              device=device)
+        s = torch.stack([torch.rsqrt(assembly.k_diag(ops, m, l)) for m, l in zip(mu, lam)])
+        x = torch.randn((B, 3 * V, k), generator=torch.Generator(device).manual_seed(k),
+                        device=device)
+        shape = f"(cube {n}, order {order}, {B} x {k} columns)"
+        valence = int((plan.ptr[1:] - plan.ptr[:-1]).max())
+        tol = (valence * 3 * N + 4) * 2.0**-24
+        mu_c, lam_c = mu.repeat_interleave(k), lam.repeat_interleave(k)
+
+        def library(mats):
+            """mats applied to each pair's scaled block, each column at its
+            pair's material, through torch.sparse.mm."""
+            xs = (s[:, :, None] * x).permute(1, 0, 2).reshape(3 * V, B * k)
+            y = (mu_c * torch.sparse.mm(mats[0], xs) + lam_c * torch.sparse.mm(mats[1], xs)
+                 if len(mats) == 2 else torch.sparse.mm(mats[0], xs))
+            return s[:, :, None] * y.reshape(3 * V, B, k).permute(1, 0, 2)
+
+        for kind in ("k", "m"):
+            if kind == "k":
+                run = lambda: ea.k_pairs(ops, x, mu, lam, s, plan)
+                plain = lambda: ea.k_pairs_plain(ops, x, mu, lam, s)
+                lib = lambda: library((K_mu, K_lam))
+                flops, nbytes = counts.count(E, N, B * k, V)
+            else:
+                run = lambda: ea.m_pairs(ops, x, s, plan)
+                plain = lambda: ea.m_pairs_plain(ops, x, s)
+                lib = lambda: library((M,))
+                flops, nbytes = counts.mass_count(E, N, B * k, V)
+            with torch.no_grad():
+                y1, y2, y_lib = run(), run(), lib()
+                same = torch.equal(y1, y2)
+                del y2
+                worst = worst_lib = 0.0
+                for b in range(B):
+                    one = slice(b, b + 1)
+                    xb, sb = x[one].double(), s[one].double()
+                    if kind == "k":
+                        mb, lb = mu[one].double(), lam[one].double()
+                        ref = ea.k_pairs_plain(o64[0], xb, mb, lb, sb)
+                        size = ea.k_pairs_plain(o64[1], xb.abs(), mb, lb, sb)
+                    else:
+                        ref = ea.m_pairs_plain(o64[0], xb, sb)
+                        size = ea.m_pairs_plain(o64[1], xb.abs(), sb)
+                    share = lambda y: float(((y[one].double() - ref).abs() / (size * tol)).max())
+                    worst, worst_lib = max(worst, share(y1)), max(worst_lib, share(y_lib))
+                    del ref, size
+                torch.cuda.synchronize()
+                if not (same and worst <= 1.0):
+                    raise RuntimeError(
+                        f"element apply {kind} {shape}: bit-identical {same}, worst error "
+                        f"{worst:.3g} of the gate ({tol:.3g} of |K| |X|) over the {B} pairs")
+                del y1, y_lib
+                got = timed(run, 20)
+                ref = timed(plain, 3)
+                libt = timed(lib, 5)
+            bound_ms = 1e3 * peaks.bound_s(flops, nbytes)
+            by = "operations" if flops / peaks.F32_FLOPS >= nbytes / peaks.HBM_BYTES else "bytes"
+            log(f"kernel element_apply {kind} {shape}: device ms per call {fmt(got['all'])} "
+                f"(host {got['host_ms']:.5f}), plain {fmt(ref['all'])}, torch.sparse.mm "
+                f"{fmt(libt['all'])}; bound {bound_ms:.5f} ms ({by}), "
+                f"{100 * bound_ms / got['ms']:.2f}% of it; worst error over the {B} pairs "
+                f"{worst:.3g} of the gate, torch.sparse.mm's {worst_lib:.3g}")
+            if (n, order, B, k) == (13, 2, 16, 66):
+                out[kind] = dict(max_gate_share=worst, ms=got["ms"], plain_ms=ref["ms"],
+                                 library_ms=libt["ms"], library_gate_share=worst_lib,
+                                 bound_ms=bound_ms, bound_by=by)
+            torch.cuda.empty_cache()
+    return out
 
 
 MAT = (2700, 7.2e10, 0.19, 6, 1e-7)
@@ -3515,7 +3656,8 @@ def parallel_phase():
     against the CPU's f64; the step and refresh profiles and a profiled
     refresh's trace; the batched Newton fit against JAX's; the CLI's
     parallel recipe; dryrun_multichip(1).  Returns the synthesis kernels'
-    launches over the 60 steps."""
+    launches over the 60 steps and the element-apply kernel's: over the 60
+    steps, and over the rest of the phase."""
     from concurrent.futures import ThreadPoolExecutor
     from types import SimpleNamespace
 
@@ -3525,6 +3667,7 @@ def parallel_phase():
     from diffsound_torch.experiments.material_sync import (
         MaterialSyncTask, flagship_material_pairs, train_pairs_parallel,
     )
+    from diffsound_torch.fem import element_apply
     from diffsound_torch.fem.mesh import cube_tet_mesh
     from diffsound_torch.parallel.dryrun import dryrun_multichip
 
@@ -3544,17 +3687,19 @@ def parallel_phase():
     steps = PARALLEL_SPEC["steps"]
     torch.cuda.synchronize()
     zero_counts()
+    applies_before = element_apply.LAUNCHES
     res = train_pairs_parallel(task, pairs, SimpleNamespace(max_epoch=steps), None,
                                init_logits=logits, gt_audio=gt)
     torch.cuda.synchronize()
     launches = read_counts()
+    applies = element_apply.LAUNCHES - applies_before
     losses, jl = res["losses"], ref["traj_losses"]
     log(f"parallel run: {3 * (2 * PARALLEL_SPEC['cube'] + 1) ** 3} DOF, 16 pairs; ground "
         f"truths {gt_s:.1f} s (four threads), cold solve {res['cold_s']:.3f} s; {steps} steps "
         f"in {res['step_s']:.3f} s ({1e3 * res['step_s'] / steps:.3f} ms a step with the "
         f"first step's forms), refreshes {fmt(res['refresh_s'], 3)} s with LOBPCG iterations "
         f"per pair {res['refresh_iters']}; {res['pair_iters_per_sec']:.1f} pair-iterations/s; "
-        f"synth kernel launches {launches}")
+        f"synth kernel launches {launches}; element-apply kernel launches {applies}")
     for b in range(16):
         log(f"parallel pair {b}: loss {losses[0, b]:.5f} -> {losses[-1, b]:.5f}, JAX "
             f"{jl[0, b]:.5f} -> {jl[-1, b]:.5f} (final gap {losses[-1, b] / jl[-1, b] - 1:+.3e}); "
@@ -3569,6 +3714,15 @@ def parallel_phase():
                            f"kernels {launches} times, not once each a step")
     if not losses[-1].mean() < losses[0].mean():
         raise RuntimeError("parallel: the last step's mean loss is not below the first's")
+    # a refresh applies M and K to the start and K and M twice a sweep (to X
+    # and to [X | R | P]), its sweeps the slowest pair's; the forms, at the
+    # first step and after each refresh, K twice and M once
+    refreshes = res["refresh_iters"]
+    want = sum(2 + 4 * max(its) for its in refreshes) + 3 * (1 + len(refreshes))
+    if applies != want:
+        raise RuntimeError(f"parallel: {len(refreshes)} refreshes of {refreshes} sweeps and "
+                           f"their forms launched the element-apply kernel {applies} times, "
+                           f"not once an apply ({want})")
 
     parallel_refresh_check(res, pairs, task)
     parallel_step_check(task, res, pairs)
@@ -3582,7 +3736,9 @@ def parallel_phase():
     log(f"parallel phase summary: " + json.dumps({
         "seconds": time.perf_counter() - t_phase, "steps_s": res["step_s"],
         "pair_iters_per_sec": res["pair_iters_per_sec"], "newton_s": newton_s, **prof}))
-    return launches
+    return launches, {"material_sync parallel": applies,
+                      "material_sync parallel checks, cli and dryrun":
+                      element_apply.LAUNCHES - applies_before - applies}
 
 
 def material_phases():
@@ -3646,7 +3802,7 @@ def main() -> int:
         launches, real_launches = material.result()
         geometry_launches = geometry.result()
         joint_launches = joint.result()
-        parallel_launches = parallel.result()
+        parallel_launches, apply_launches = parallel.result()
     log(f"phases material_sync, material_real, shape, geometry, joint and parallel, "
         f"concurrently: {time.perf_counter() - t_phase:.3f} s")
     t_phase = time.perf_counter()
@@ -3677,6 +3833,22 @@ def main() -> int:
         # the TPU kernel's VJP: synth_fused's backward recomputes through XLA
         ("synth_constant_modes_bwd", "diffsound_tpu/audio/pallas_osc.py:112"),
     )]
+    by_op = figures["element_apply"]
+    kernels.append({
+        "name": "element_apply",
+        "route": "cuda",
+        "source": "diffsound_torch/csrc/element_apply.cu",
+        # on the TPU these applies are XLA's (fem/assembly.py k_matvec, m_matvec)
+        "replaces": None,
+        "launches": apply_launches["material_sync parallel"],
+        # only the multi-pair trainer's refresh and forms launch it; the
+        # other paths apply K and M through fem/assembly.py
+        "launches_by_path": apply_launches,
+        # one K and one M apply at (cube 13, order 2, 16 x 66 columns)
+        **{key: by_op["k"][key] + by_op["m"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "by_operator": by_op,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

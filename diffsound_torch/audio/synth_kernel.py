@@ -28,23 +28,15 @@ when the source hash changes) and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "synth.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+from ..utils import nvcc
+
+SOURCE = os.path.join(nvcc.CSRC, "synth.cu")
 
 LAUNCHES = 0
 LAUNCHES_BWD = 0
@@ -54,41 +46,13 @@ _lib = None
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: cannot build csrc/synth.cu")
-    return path
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libsynth_{digest}.so")
-
-
 def build() -> str:
     """Compile csrc/synth.cu unless a build of this exact source exists;
     returns the shared library's path.  Raises if nvcc fails."""
     global BUILD_SECONDS
-    so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    BUILD_SECONDS = time.perf_counter() - t0
-    with open(so + ".log", "w") as f:
-        f.write(proc.stderr)
+    so, seconds = nvcc.build(SOURCE)
+    if seconds is not None:
+        BUILD_SECONDS = seconds
     return so
 
 

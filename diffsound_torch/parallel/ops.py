@@ -2,27 +2,21 @@
 
 Counterpart of `diffsound_tpu/parallel/ops.py`.  The element arrays (tets,
 k_mu, k_lam, mass_scale) are padded with zero-block tets (at vertex 0) to a
-multiple of ep and split over the ep ranks on their leading dimension.  A
-K @ X is `fem.assembly.k_matvec` on the shard's element arrays: it gathers
-the replicated node block, runs the local float32 (or float64) block
-products and sums each vertex's rows of the shard without atomics (on the
-card through the shard's own gather transpose, `build_gather_transpose` and
-`gather_sum`; on the CPU by the sequential index_add_).  Then one
-all-reduce over the ep group sums the shards' node blocks, the nodes they
-share included.  The collective is not
-differentiable: callers run these under `torch.no_grad()`.
-
-Material scalars may be per column: `k_matvec(x, mu, lam)` with mu and lam
-of shape (c,) for x (3V, c) applies each column's own material, which is
-how the multi-pair trainer applies K for all pairs in one product per block
-type.
+multiple of ep and split over the ep ranks on their leading dimension.  The
+multi-pair trainer applies K and M to all pairs' blocks (B, 3V, k) at once
+through `k_pairs` and `m_pairs`, which also take the solve's Jacobi
+scaling: `fem.element_apply` on the shard's element arrays (the
+hand-written kernel on the card, `fem.assembly`'s applies on the CPU),
+then one all-reduce over the ep group sums the shards' node blocks, the
+nodes they share included.  The collective is not differentiable: callers
+run these under `torch.no_grad()`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..fem import assembly
+from ..fem import assembly, element_apply
 from ..fem.assembly import ElementOps, build_gather_transpose
 from .mesh import DeviceMesh
 
@@ -65,14 +59,17 @@ class ShardedFEM:
         self.mesh = mesh
         self.ops = shard_element_ops(ops, mesh)
         self.num_vertices = ops.num_vertices
+        self.plan = element_apply.apply_plan(self.ops) if self.ops.tets.is_cuda else None
 
-    def k_matvec(self, x: torch.Tensor, mu, lam) -> torch.Tensor:
-        """K @ X for X (3V, c); mu, lam scalars or (c,) per column."""
-        return self.mesh.ep_sum(assembly.k_matvec(self.ops, x, mu, lam))
+    def k_pairs(self, x: torch.Tensor, mu, lam, scale=None) -> torch.Tensor:
+        """diag(s_b) K(mu_b, lam_b) diag(s_b) x_b for every pair b of x
+        (B, 3V, k); mu, lam (B,); scale s (B, 3V), or None for none."""
+        return self.mesh.ep_sum(
+            element_apply.k_pairs(self.ops, x.contiguous(), mu, lam, scale, self.plan))
 
-    def m_matvec(self, x: torch.Tensor, density=1.0) -> torch.Tensor:
-        """M @ X for X (3V, c)."""
-        return self.mesh.ep_sum(assembly.m_matvec(self.ops, x, density))
+    def m_pairs(self, x: torch.Tensor, scale=None) -> torch.Tensor:
+        """diag(s_b) M diag(s_b) x_b (unit density) for every pair b of x."""
+        return self.mesh.ep_sum(element_apply.m_pairs(self.ops, x.contiguous(), scale, self.plan))
 
     def k_diag(self, mu, lam) -> torch.Tensor:
         """diag(K): (3V,) for scalar mu, lam; (3V, c) for (c,) materials."""
@@ -83,10 +80,13 @@ class ShardedFEM:
         return d if per_col else d[:, 0]
 
     def quadratic_forms(self, U: torch.Tensor) -> torch.Tensor:
-        """(3, c): diag(U^T K_mu U), diag(U^T K_lam U), diag(U^T M U) of the
-        columns of U (3V, c), at unit density.  The forms are linear in each
-        shard's node sums, so only the (3, c) result crosses the ep group."""
-        q = torch.stack([(U * assembly.k_matvec(self.ops, U, 1.0, 0.0)).sum(0),
-                         (U * assembly.k_matvec(self.ops, U, 0.0, 1.0)).sum(0),
-                         (U * assembly.m_matvec(self.ops, U, 1.0)).sum(0)])
+        """(3, B, k): diag(U_b^T K_mu U_b), diag(U_b^T K_lam U_b),
+        diag(U_b^T M U_b) of every pair's block of U (B, 3V, k), at unit
+        density.  The forms are linear in each shard's node sums, so only
+        the (3, B, k) result crosses the ep group."""
+        U = U.contiguous()
+        one, zero = U.new_ones(U.shape[0]), U.new_zeros(U.shape[0])
+        apply = lambda y: element_apply.k_pairs(self.ops, U, *y, plan=self.plan)
+        q = torch.stack([(U * apply((one, zero))).sum(1), (U * apply((zero, one))).sum(1),
+                         (U * element_apply.m_pairs(self.ops, U, plan=self.plan)).sum(1)])
         return self.mesh.ep_sum(q)

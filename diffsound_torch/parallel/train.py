@@ -7,10 +7,10 @@ and the element arrays are split over ep (`ShardedFEM`).  Per step:
 
   * refresh (on the caller's cadence, under no_grad): each pair's Jacobi
     scaling from diag(K) at its own (mu, lambda), then one batched warm
-    LOBPCG (`lobpcg_batched`, recompute body) in which K is applied to all
-    pairs at once: their blocks side by side in columns, one product per
-    element block type (k_mu, k_lam), each pair's columns scaled by its
-    own mu and lambda;
+    LOBPCG (`lobpcg_batched`, recompute body) in which K and M are applied
+    to all pairs' blocks at once, each pair's K at its own mu and lambda,
+    the scaling folded in (`ShardedFEM.k_pairs`, `m_pairs`: on the card one
+    launch of the element-apply kernel each);
   * the differentiable part: the modal cache of `models/sound_obj.py`,
         lam~ = lam + mu q_mu + lambda q_lam - lam q_m   (per pair),
     with the quadratic forms recomputed whenever the eigenvectors change
@@ -88,20 +88,6 @@ class MultipairTrainer:
         self._forms = None  # (eigvec_b, (3, B_local, k) quadratic forms)
         self._targets = None  # (gt_b, the L1 loss's target cache)
 
-    # -- all pairs' operators ------------------------------------------------
-
-    def _k_pairs(self, y, mu, lam):
-        """K(mu_b, lam_b) y_b for y (B, n, k), one product per block type."""
-        B, n, k = y.shape
-        cols = y.permute(1, 0, 2).reshape(n, B * k)
-        out = self.fem.k_matvec(cols, mu.repeat_interleave(k), lam.repeat_interleave(k))
-        return out.reshape(n, B, k).permute(1, 0, 2)
-
-    def _m_pairs(self, y):
-        B, n, k = y.shape
-        out = self.fem.m_matvec(y.permute(1, 0, 2).reshape(n, B * k))
-        return out.reshape(n, B, k).permute(1, 0, 2)
-
     def solve(self, mu, lam, eigvec_b, max_iters: int, tol: float,
               profiler: Optional[str] = None):
         """Batched warm solve at per-pair Lame values mu, lam (B,) from
@@ -111,13 +97,13 @@ class MultipairTrainer:
             dt = eigvec_b.dtype
             mu, lam = mu.to(dt), lam.to(dt)
             d = self.fem.k_diag(mu, lam)  # (n, B)
-            dsc = torch.rsqrt(torch.clamp(d, min=torch.finfo(dt).tiny)).T[:, :, None]
+            dsc = torch.rsqrt(torch.clamp(d, min=torch.finfo(dt).tiny)).T.contiguous()
             res = lobpcg_batched(
-                lambda y: dsc * self._k_pairs(dsc * y, mu, lam),
-                lambda y: dsc * self._m_pairs(dsc * y),
-                eigvec_b / dsc, max_iters=max_iters, tol=tol, profiler=profiler,
+                lambda y: self.fem.k_pairs(y, mu, lam, dsc),
+                lambda y: self.fem.m_pairs(y, dsc),
+                eigvec_b / dsc[:, :, None], max_iters=max_iters, tol=tol, profiler=profiler,
             )
-            return res.eigenvalues, dsc * res.eigenvectors, res.iterations
+            return res.eigenvalues, dsc[:, :, None] * res.eigenvectors, res.iterations
 
     def refresh(self, params_b, eigvec_b, profiler: Optional[str] = None):
         """The warm refresh at every local pair's current material."""
@@ -127,10 +113,8 @@ class MultipairTrainer:
 
     def quadratic_forms(self, eigvec_b):
         """(q_mu, q_lam, q_m), each (B, k), of every pair's eigenvectors."""
-        B, n, k = eigvec_b.shape
         with torch.no_grad(), span("diffsound.forms"):
-            q = self.fem.quadratic_forms(eigvec_b.permute(1, 0, 2).reshape(n, B * k))
-        return q.reshape(3, B, k)
+            return self.fem.quadratic_forms(eigvec_b)
 
     def _forms_of(self, eigvec_b):
         if self._forms is None or self._forms[0] is not eigvec_b:

@@ -87,37 +87,36 @@ def test_lobpcg_batched_equals_serial_per_pair(max_iters):
 # -- ShardedFEM in one process -----------------------------------------------
 
 
-def _jax_fem(x, mus=None, lams=None):
-    mesh, _, mu, lam, _ = W.fem_problem()
+def fem_reference():
+    """JAX's assembly on tests/test_parallel.py's problem, pair by pair, and
+    the port's unsharded one."""
+    mesh, ops, mu, lam, x = W.fem_problem()
+    mus, lams = (t.tolist() for t in W.pair_materials(mu, lam))
     jops = jassembly.build_element_ops(jnp.asarray(mesh.vertices), jnp.asarray(mesh.tets), 1,
                                        dtype=jnp.float64)
-    X = jnp.asarray(x)
-    out = {"k": np.asarray(jassembly.k_matvec(jops, X, mu, lam)),
-           "m": np.asarray(jassembly.m_matvec(jops, X, 2.7)),
-           "d": np.asarray(jassembly.k_diag(jops, mu, lam))}
-    if mus is not None:
-        out["k_cols"] = np.stack([np.asarray(jassembly.k_matvec(jops, X[:, i:i + 1], m, l))[:, 0]
-                                  for i, (m, l) in enumerate(zip(mus, lams))], 1)
-        out["d_cols"] = np.stack([np.asarray(jassembly.k_diag(jops, m, l))
-                                  for m, l in zip(mus, lams)], 1)
-    return out
-
-
-def fem_reference():
-    """JAX's assembly on tests/test_parallel.py's problem, and the port's."""
-    _, ops, mu, lam, x = W.fem_problem()
-    mus = [mu, 0.5 * mu, 2 * mu, mu]
-    lams = [lam, 2 * lam, 0.0, 3 * lam]
+    jk = lambda X, m, l: np.asarray(jassembly.k_matvec(jops, jnp.asarray(X), m, l))
+    jm = lambda X: np.asarray(jassembly.m_matvec(jops, jnp.asarray(X), 1.0))
+    d_cols = np.stack([np.asarray(jassembly.k_diag(jops, m, l)) for m, l in zip(mus, lams)], 1)
+    s = 1.0 / np.sqrt(d_cols.T[:, :, None])
+    jax_ref = {
+        "k": np.stack([jk(xb, m, l) for xb, m, l in zip(x, mus, lams)]),
+        "k_scaled": np.stack([sb * jk(sb * xb, m, l) for xb, sb, m, l in zip(x, s, mus, lams)]),
+        "m": np.stack([jm(xb) for xb in x]),
+        "m_scaled": np.stack([sb * jm(sb * xb) for xb, sb in zip(x, s)]),
+        "d": np.asarray(jassembly.k_diag(jops, mu, lam)), "d_cols": d_cols,
+        "q": np.stack([[(xb * f(xb)).sum(0) for xb in x]
+                       for f in (lambda X: jk(X, 1.0, 0.0), lambda X: jk(X, 0.0, 1.0), jm)])}
     X = torch.as_tensor(x)
-    port = {"k": assembly.k_matvec(ops, X, mu, lam).numpy(),
-            "m": assembly.m_matvec(ops, X, 2.7).numpy(),
+    port = {"k": torch.stack([assembly.k_matvec(ops, xb, m, l)
+                              for xb, m, l in zip(X, mus, lams)]).numpy(),
+            "m": torch.stack([assembly.m_matvec(ops, xb, 1.0) for xb in X]).numpy(),
             "d": assembly.k_diag(ops, mu, lam).numpy()}
-    return _jax_fem(x, mus, lams), port
+    return jax_ref, port
 
 
 def check_fem(got, jax_ref, port_ref):
-    for key in ("k", "m", "d", "k_cols", "d_cols"):
-        ref = jax_ref[key]
+    assert set(got) == set(jax_ref)
+    for key, ref in jax_ref.items():
         np.testing.assert_allclose(got[key], ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max(),
                                    err_msg=key)
         if key in port_ref:
@@ -133,11 +132,12 @@ def test_pad_element_ops_preserves_matvec():
     mesh, ops, mu, lam, x = W.fem_problem()
     padded = pad_element_ops(ops, 7)
     assert padded.num_tets % 7 == 0 and padded.num_tets > ops.num_tets
-    X = torch.as_tensor(x[:, :2])
+    X = torch.as_tensor(x[0])
     np.testing.assert_allclose(assembly.k_matvec(padded, X, mu, lam).numpy(),
                                assembly.k_matvec(ops, X, mu, lam).numpy(), rtol=1e-12)
     fem = ShardedFEM(padded, make_device_mesh(1, 1, "cpu"))
-    np.testing.assert_allclose(fem.k_matvec(X, mu, lam).numpy(),
+    one = lambda v: torch.tensor([v], dtype=torch.float64)
+    np.testing.assert_allclose(fem.k_pairs(X[None], one(mu), one(lam))[0].numpy(),
                                assembly.k_matvec(ops, X, mu, lam).numpy(), rtol=1e-12)
 
 

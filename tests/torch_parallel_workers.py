@@ -25,26 +25,38 @@ F64 = torch.float64
 
 
 def fem_problem():
-    """tests/test_parallel.py's problem: cube_tet_mesh(3) at order 1, f64."""
+    """tests/test_parallel.py's problem: cube_tet_mesh(3) at order 1, f64;
+    x (4, 3V, 2) four pairs' blocks."""
     mesh = cube_tet_mesh(3)
     ops = assembly.build_element_ops(torch.as_tensor(mesh.vertices), mesh.tets, 1)
     mu, lam = lame_params(2.1e7, 0.3)
-    x = np.random.default_rng(0).standard_normal((3 * mesh.num_vertices, 4))
+    x = np.random.default_rng(0).standard_normal((4, 3 * mesh.num_vertices, 2))
     return mesh, ops, mu, lam, x
 
 
+def pair_materials(mu, lam):
+    """Each of fem_problem's four pairs' Lame values, (4,) each."""
+    return (torch.tensor([mu, 0.5 * mu, 2 * mu, mu], dtype=F64),
+            torch.tensor([lam, 2 * lam, 0.0, 3 * lam], dtype=F64))
+
+
 def fem_results(dmesh):
-    """K @ X, M @ X (density 2.7) and diag(K) through ShardedFEM on dmesh,
-    and K @ X with a material per column."""
+    """Through ShardedFEM on dmesh: K and M (unit density) of every pair's
+    block at its own material, bare and between the solve's Jacobi
+    scalings; diag(K) at one material and at each pair's; the quadratic
+    forms of the blocks."""
     _, ops, mu, lam, x = fem_problem()
     fem = ShardedFEM(ops, dmesh)
     X = torch.as_tensor(x)
-    mus = torch.tensor([mu, 0.5 * mu, 2 * mu, mu], dtype=F64)
-    lams = torch.tensor([lam, 2 * lam, 0.0, 3 * lam], dtype=F64)
+    mus, lams = pair_materials(mu, lam)
     with torch.no_grad():
-        return {"k": fem.k_matvec(X, mu, lam).numpy(), "m": fem.m_matvec(X, 2.7).numpy(),
-                "d": fem.k_diag(mu, lam).numpy(), "k_cols": fem.k_matvec(X, mus, lams).numpy(),
-                "d_cols": fem.k_diag(mus, lams).numpy()}
+        d_cols = fem.k_diag(mus, lams)
+        s = torch.rsqrt(d_cols).T.contiguous()
+        return {"k": fem.k_pairs(X, mus, lams).numpy(),
+                "k_scaled": fem.k_pairs(X, mus, lams, s).numpy(),
+                "m": fem.m_pairs(X).numpy(), "m_scaled": fem.m_pairs(X, s).numpy(),
+                "d": fem.k_diag(mu, lam).numpy(), "d_cols": d_cols.numpy(),
+                "q": fem.quadratic_forms(X).numpy()}
 
 
 def port_setup(dmesh, refresh_iters=2, refresh_tol=1e-3):
