@@ -4,7 +4,7 @@ one process (the seed-independent inputs are made once):
   program   sound runs on many seeds (the lower readings)
   control   the program with TF32 switched back on for its float32
             products, the precision below the one the configuration states
-  faults    each fault of harness/faults.py planted under the timed path
+  faults    each fault of the cell's driver planted under the timed path
 
 Each run drives set-up (the recipe's first 15 steps and one cycle) and
 one window cycle, then the reference check.  No metric is reported.
@@ -52,21 +52,21 @@ def main(argv=None) -> int:
 
     import torch
 
-    from harness import check, faults
     from harness import main as harness
 
     spec = harness.cell_spec(root, args.workload)
+    drv = harness.driver(spec["cfg"])
     plan = [("program", None, s) for s in seeds(args.seeds)]
     plan += [("control", None, s) for s in seeds(args.control_seeds)]
-    plan += [("fault", f, s) for f in faults.FAULTS for s in seeds(args.fault_seeds)]
+    plan += [("fault", f, s) for f in drv.FAULTS for s in seeds(args.fault_seeds)]
     rows = []
     for kind, fault, seed in plan:
         set_tf32(kind == "control")
         t0 = time.perf_counter()
         m = harness.measure(spec, seed, 0.0, False, "cuda", t0, fault)
-        values = check.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device("cuda"),
-                               unpinned=True)
-        faults.heal()
+        values = drv.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device("cuda"),
+                             unpinned=True)
+        drv.heal()
         row = {"kind": kind, "fault": fault, "seed": seed, "numbers": values,
                "refresh_iters": m["ctx"]["window"]["refresh_iters"],
                "seconds": time.perf_counter() - t0}
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
         got = [r["numbers"] for r in rows if r["kind"] == kind]
         if got:
             summary[kind] = {k: [min(g[k] for g in got), max(g[k] for g in got)] for k in got[0]}
-    for f in faults.FAULTS:
+    for f in drv.FAULTS:
         got = [r["numbers"] for r in rows if r["fault"] == f]
         if got:
             summary[f] = {k: [min(g[k] for g in got), max(g[k] for g in got)] for k in got[0]}

@@ -154,13 +154,13 @@ def ritz_values(S: torch.Tensor, KS: torch.Tensor, MS: torch.Tensor) -> torch.Te
     return torch.linalg.eigvalsh(T.T @ A @ T)
 
 
-def judge(values: dict, limits: dict) -> tuple:
-    """(correct, [(name, value, limit)]) over every number of NAMES; a
-    number that is not finite fails, and a cell whose limits leave one
-    out is refused."""
-    missing = [k for k in NAMES if k not in limits]
+def judge(values: dict, limits: dict, names) -> tuple:
+    """(correct, [(name, value, limit)]) over every number of `names` (the
+    driver's NAMES); a number that is not finite fails, and a cell whose
+    limits leave one out is refused."""
+    missing = [k for k in names if k not in limits]
     if missing:
         raise KeyError(f"the cell's limits leave out {missing}")
-    rows = [(k, float(values[k]), float(limits[k])) for k in NAMES]
+    rows = [(k, float(values[k]), float(limits[k])) for k in names]
     ok = all(math.isfinite(v) and v <= lim for _, v, lim in rows)
     return ok, rows

@@ -30,16 +30,6 @@ PRETRAIN_STEPS, PRETRAIN_LR = 5000, 5e-3
 TRAFFIC_KEYS = {"pairs", "target_E", "E_jitter", "target_nu", "note"}
 
 
-def check_traffic(traffic: dict) -> dict:
-    """The traffic mix as read, refused if it holds a key that this
-    generator does not read."""
-    unknown = sorted(set(traffic) - TRAFFIC_KEYS)
-    if unknown:
-        raise ValueError(f"traffic keys {unknown} are not read by portbench/harness/inputs.py "
-                         f"(it reads {sorted(TRAFFIC_KEYS)})")
-    return traffic
-
-
 def cache_dir() -> str:
     """`.portbench_cache/` at the root of the checkout (the command runs
     from there)."""

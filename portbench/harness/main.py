@@ -1,13 +1,54 @@
-"""One run of a cell: inputs, set-up, the window, the traced cycle, the
+"""One run of a cell: inputs, set-up, the window, the traced cycles, the
 check, the metrics.  Everything that belongs to one configuration, traffic
 mix, cell or metric is found by name:
 
   BENCHMARK.json                     the cell's configuration, traffic and metrics
-  <configs[].file>                   the configuration
+  <configs[].file>                   the configuration; its key "driver" names
+                                     the driver (default "multipair_l1")
+  portbench/drivers/<driver>.py      what is particular to the configuration's
+                                     program, inputs and check (below)
   portbench/traffic/<traffic>.json   the traffic mix
   portbench/cells/<cell>.json        the cell's nominal cycle seconds and the
                                      check's limits
   portbench/metrics/<metric>.py      read(ctx) -> the metric's value, or None
+
+A driver module defines:
+
+  TRAFFIC_KEYS    the traffic keys it reads; a traffic file with any other
+                  key is refused
+  make_inputs(cfg, traffic, seed, device) -> dict
+                  every input of a run, handed alike to the program and to
+                  the reference
+  Program(cfg, inputs, device)
+                  the system under test, with `device`, `pairs` (rows a step
+                  trains), `cycle_len` (steps a cycle), `losses` (each
+                  step's losses on the device), `refresh_iters` (each
+                  refresh's iterations a pair), `refresh()` (a no-op where the
+                  recipe has no separate refresh), `step()`, `cycle(spans)`
+                  (a refresh and its steps; spans, a dict of lists, takes the
+                  synced seconds of the refresh, "refresh_s", and of the
+                  steps after the first, "steps_s") and `setup_steps() -> rec`
+                  (the set-up's steps, recording on the host what the check
+                  compares)
+  dims(cfg, inputs) -> dict
+                  the sizes that metric files and portbench/counts/ read
+  NAMES, numbers(rec, inputs, cfg, device, unpinned=False) -> dict
+                  the numbers the check compares, against the plain
+                  reference; the cell file gives a limit to each of NAMES
+  FAULTS, plant(name, prog), heal()
+                  faults planted under the timed path, for calibrate.py and
+                  the benchmark's tests; heal undoes what plant patched
+                  beyond `prog`
+  program_tracing() -> dict or None
+                  the program's own spans and counters: {"tracing": a
+                  context manager factory that turns them on, "counters":
+                  a function returning them, "prefix": the spans' name
+                  prefix}; None where the program has none.  A traced run
+                  profiles one more cycle with them (harness/spans.py)
+
+A driver may import and reuse harness/ and reference/.  A configuration is
+added with new files alone: its file, a driver, reference files, a traffic
+file, a cell file and entries in BENCHMARK.json.
 
 The window is a fixed amount of work: round(seconds / cycle_s) whole
 cycles, cycle_s the cell's cycle on the H100 it was defined on.  A window
@@ -27,9 +68,12 @@ import time
 
 import torch
 
-from . import check, faults, inputs, program, trace
+from . import check, spans, trace
+from .program import sync, window
 
 PORTBENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_DRIVER = "multipair_l1"
+DRIVER_DIRS = (os.path.join(PORTBENCH, "drivers"),)  # searched in order
 
 
 def log(msg: str) -> None:
@@ -39,6 +83,34 @@ def log(msg: str) -> None:
 def load_json(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def driver(cfg: dict):
+    """The driver module that the configuration `cfg` names, loaded once a
+    process from the first of DRIVER_DIRS that holds it."""
+    name = cfg.get("driver", DEFAULT_DRIVER)
+    paths = [os.path.join(d, f"{name}.py") for d in DRIVER_DIRS]
+    path = next((p for p in paths if os.path.isfile(p)), None)
+    if path is None:
+        raise FileNotFoundError(f"no driver {name!r}: looked for {' and '.join(paths)}")
+    key = f"portbench_driver_{name.replace('.', '_')}"
+    mod = sys.modules.get(key)
+    if mod is None or mod.__file__ != path:
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[key] = mod
+    return mod
+
+
+def check_traffic(traffic: dict, drv) -> dict:
+    """The traffic mix as read, refused if it holds a key that the driver
+    does not read."""
+    unknown = sorted(set(traffic) - set(drv.TRAFFIC_KEYS))
+    if unknown:
+        raise ValueError(f"traffic keys {unknown} are not read by the driver {drv.__file__} "
+                         f"(it reads {sorted(drv.TRAFFIC_KEYS)})")
+    return traffic
 
 
 def cell_spec(root: str, name: str) -> dict:
@@ -60,10 +132,11 @@ def cell_spec(root: str, name: str) -> dict:
     layer = [m for m in bench["per_layer"] if name in m["workloads"]]
     own = load_json(os.path.join(PORTBENCH, "cells", f"{name}.json"))
     traffic = load_json(os.path.join(PORTBENCH, "traffic", f"{cell['traffic']}.json"))
+    cfg = load_json(os.path.join(root, conf["file"]))
     return {
         "cell": cell,
-        "cfg": load_json(os.path.join(root, conf["file"])),
-        "traffic": inputs.check_traffic(traffic),
+        "cfg": cfg,
+        "traffic": check_traffic(traffic, driver(cfg)),
         "cycle_s": float(own["cycle_s"]), "limits": own["limits"],
         "end_to_end": bench["end_to_end"], "per_layer": layer,
     }
@@ -77,28 +150,23 @@ def read_metric(name: str, ctx: dict):
     return mod.read(ctx)
 
 
-def dims(cfg: dict, inp: dict) -> dict:
-    return {"B": inp["targets"].shape[0], "M": cfg["mode_num"],
-            "k": cfg["mode_num"] + cfg["extra_modes"], "T": cfg["frame_num"],
-            "F": cfg["force_frame_num"], "n_ffts": list(cfg["n_ffts"]),
-            "E": inp["tets"].shape[0], "nodes": inp["tets"].shape[1], "V": inp["verts"].shape[0]}
-
-
 def measure(spec: dict, seed: int, seconds: float, traced: bool, device, t_start: float,
             fault=None) -> dict:
-    """Set-up, the window and, when traced, the spans and the traced cycle:
+    """Set-up, the window and, when traced, the spans and the two traced
+    cycles (the benchmark's spans alone, then the program's own as well):
     everything but the check.  Returns the run's record."""
     cfg, traffic = spec["cfg"], spec["traffic"]
+    drv = driver(cfg)
     dev = torch.device(device)
     t0 = time.perf_counter()
-    inp = inputs.make(cfg, traffic, seed, dev)
+    inp = drv.make_inputs(cfg, traffic, seed, dev)
     t1 = time.perf_counter()
-    prog = program.Program(cfg, inp, dev)
+    prog = drv.Program(cfg, inp, dev)
     if fault:
-        faults.plant(fault, prog)
+        drv.plant(fault, prog)
     t2 = time.perf_counter()
     rec = prog.setup_steps()
-    program.sync(dev)
+    sync(dev)
     setup_s = time.perf_counter() - t_start
     log(f"set-up: imports {t0 - t_start:.3f} s, inputs {t1 - t0:.3f} s, trainer {t2 - t1:.3f} s, "
         f"first steps and a cycle {time.perf_counter() - t2:.3f} s")
@@ -107,14 +175,21 @@ def measure(spec: dict, seed: int, seconds: float, traced: bool, device, t_start
     if cuda and traced:
         torch.cuda.reset_peak_memory_stats(dev)
     n0 = len(prog.losses)
-    spans = {"refresh_s": [], "steps_s": []} if traced else None
-    win = program.window(prog, max(1, round(seconds / spec["cycle_s"])), spans)
-    win["spans"] = spans
+    win_spans = {"refresh_s": [], "steps_s": []} if traced else None
+    win = window(prog, max(1, round(seconds / spec["cycle_s"])), win_spans)
+    win["spans"] = win_spans
     peak_window = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    tr = trace.traced_cycle(prog) if traced else None
+    tr = sp = None
+    if traced:
+        t3 = time.perf_counter()
+        tr = trace.traced_cycle(prog)
+        t4 = time.perf_counter()
+        sp = spans.program_cycle(prog, drv.program_tracing())
+        log(f"traced cycles: profiled {t4 - t3:.3f} s, with the program's spans "
+            f"{time.perf_counter() - t4:.3f} s")
     failed = int((~torch.isfinite(torch.stack(prog.losses[n0:n0 + win["steps"]]))).sum())
-    ctx = {"setup_s": setup_s, "window": win, "trace": tr, "dims": dims(cfg, inp),
-           "plain_steps": int(cfg["refresh_every"]) - 1,
+    ctx = {"setup_s": setup_s, "window": win, "trace": tr, "spans": sp,
+           "dims": drv.dims(cfg, inp), "plain_steps": prog.cycle_len - 1,
            "peak_window_bytes": peak_window if traced else None}
     del prog
     gc.collect()
@@ -135,10 +210,11 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device, t_start: fl
         v = read_metric(e["name"], ctx)
         if v is not None:
             metrics[e["name"]] = {"value": float(v), "unit": e["unit"]}
+    drv = driver(spec["cfg"])
     t0 = time.perf_counter()
-    values = check.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device(device))
+    values = drv.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device(device))
     log(f"reference check: {time.perf_counter() - t0:.3f} s")
-    ok, rows = check.judge(values, spec["limits"])
+    ok, rows = check.judge(values, spec["limits"], drv.NAMES)
     ok = ok and m["failed"] == 0
     out = {
         "correct": bool(ok),
@@ -151,6 +227,9 @@ def run(spec: dict, seed: int, seconds: float, traced: bool, device, t_start: fl
     if tr:
         out["device"].update(busy_s=tr["busy_s"], window_s=tr["window_s"])
         out["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
+        if ctx["spans"]:
+            out["breakdown"].update(span_device=ctx["spans"]["span_device"],
+                                    idle_spans=ctx["spans"]["idle_spans"])
     out["checks"] = {name: {"value": v, "limit": lim} for name, v, lim in rows}  # last
     w = ctx["window"]
     its = w["refresh_iters"]

@@ -1,13 +1,15 @@
 """The program's own spans and counters, read from one more profiled cycle.
 
 `program_cycle` profiles a cycle as `trace.traced_cycle` does, with the
-port's `diffsound_torch.utils.profiler.tracing()` open, so the port's
-`diffsound.*` spans (`record_function` scopes) land in kineto's event
-stream beside the benchmark's `portbench.*` spans and the CUDA runtime and
-device records, on one clock.  Read from it, in memory:
+program's tracing open, as its driver's `program_tracing()` hands it: a
+`tracing()` context, a `counters()` reader and the prefix of its span
+names (for diffsound_torch, `diffsound_torch.utils.profiler` and
+"diffsound.").  The program's spans (`record_function` scopes) then land in
+kineto's event stream beside the benchmark's `portbench.*` spans and the
+CUDA runtime and device records, on one clock.  Read from it, in memory:
 
   attribution  each kernel, copy and set goes to its runtime call by
-               correlation id; the call goes to the innermost `diffsound.*`
+               correlation id; the call goes to the innermost program
                span that covers its start, on any thread (the autograd
                thread launches the backward while the main thread waits
                inside `diffsound.backward`); else to the innermost
@@ -20,8 +22,8 @@ device records, on one clock.  Read from it, in memory:
                named as a launch is, by the gap's midpoint
   counters     the program's, as `counters()` returns them
 
-`readings` turns that into the batched refresh's four numbers.  A program
-without `tracing()` gives None.
+`readings` turns that into three numbers of the batched refresh.  A driver
+whose program has no tracing gives None.
 """
 
 from __future__ import annotations
@@ -46,25 +48,19 @@ def _runtime(kind: str, name: str) -> bool:
     return kind in RUNTIME_KINDS or (kind == "cpu_op" and name.startswith("cu"))
 
 
-def profile_cycle(prog, program_spans: bool):
+def profile_cycle(prog, hooks=None):
     """One cycle of `prog` under torch.profiler, in `trace.traced_cycle`'s
-    spans and synchronises; with program_spans, inside the program's
-    `tracing()`.  Returns (events, counters), or None where program_spans
-    is asked of a program without `tracing()`."""
+    spans and synchronises; with `hooks` (a driver's `program_tracing()`),
+    inside the program's `tracing()`.  Returns (events, counters)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from .program import sync
 
-    if program_spans:
-        try:
-            from diffsound_torch.utils.profiler import counters, tracing
-        except ImportError:
-            return None
     dev = prog.device
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     sync(dev)
     with profile(activities=acts) as prof:
-        with tracing() if program_spans else contextlib.nullcontext():
+        with hooks["tracing"]() if hooks else contextlib.nullcontext():
             with record_function("portbench.cycle"):
                 with record_function("portbench.refresh"):
                     prog.refresh()
@@ -76,15 +72,16 @@ def profile_cycle(prog, program_spans: bool):
                     with record_function("portbench.step"):
                         prog.step()
                 sync(dev)
-            ctr = counters() if program_spans else {}
+            ctr = hooks["counters"]() if hooks else {}
     return prof.profiler.kineto_results.events(), ctr
 
 
-def program_cycle(prog):
-    """`read` of one program-traced cycle of `prog`; None where the program
-    has no `tracing()`."""
-    got = profile_cycle(prog, True)
-    return None if got is None else read(*got)
+def program_cycle(prog, hooks):
+    """`read` of one cycle of `prog` traced with `hooks`, its driver's
+    `program_tracing()`; None where that is None."""
+    if hooks is None:
+        return None
+    return read(*profile_cycle(prog, hooks), prefix=hooks["prefix"])
 
 
 class _Innermost:
@@ -131,7 +128,9 @@ def _self_seconds(spans) -> dict:
     return {k: v * 1e-9 for k, v in out.items()}
 
 
-def read(events, counters: dict) -> dict:
+def read(events, counters: dict, prefix: str = "diffsound.") -> dict:
+    """The cycle's table (module docstring) from its kineto `events`, the
+    program's `counters` and the `prefix` of the program's span names."""
     spans, bench, dev, runtime, launches = [], [], [], {}, []
     for e in events:
         name, s = e.name(), e.start_ns()
@@ -144,7 +143,7 @@ def read(events, counters: dict) -> dict:
             if name in LAUNCH_NAMES:
                 launches.append(s)
         elif kind in HOST_KINDS:
-            if name.startswith("diffsound."):
+            if name.startswith(prefix):
                 spans.append((name, s, t, e.start_thread_id()))
             elif name.startswith("portbench."):
                 bench.append((name, s, t, e.start_thread_id()))
@@ -182,7 +181,7 @@ def read(events, counters: dict) -> dict:
         if b > a:
             table[owner((a + b) // 2)]["idle_s"] += float(b - a) * 1e-9
 
-    ours = {k: v for k, v in table.items() if k.startswith("diffsound.")}
+    ours = {k: v for k, v in table.items() if k.startswith(prefix)}
     attributed = sum(v["device_s"] for v in ours.values())
     top = lambda key, rows: sorted(([k, v[key]] for k, v in rows.items() if v[key] > 0),
                                    key=lambda x: -x[1])[:10]
@@ -197,8 +196,8 @@ def read(events, counters: dict) -> dict:
 
 def readings(sp: dict, dims: dict) -> dict:
     """The batched refresh's numbers in a program-traced cycle `sp`
-    (`read`'s), at the cell's `dims` (harness.main.dims); each None where
-    the cycle holds nothing to read it from.
+    (`read`'s), at the cell's `dims` (its driver's); each None where
+    the cycle holds nothing to read it from, as on a host without a card.
 
     apply_roofline (%): the element applies' bound, `counts/element_apply.py`
       (`count` for K, `mass_count` for M) at each kind's mean columns a
@@ -210,16 +209,15 @@ def readings(sp: dict, dims: dict) -> dict:
       operations-bound at about 134 columns (order 2) or 120 (order 1),
       and M at order 1 at about 110, while M at order 2 is bytes-bound at
       any width.  So the mean gives the exact sum.
-    eigh_ms (ms): the wall of the `diffsound.lobpcg.eigh` spans on the
-      trace clock over `lobpcg.sweeps`: the host's enqueue and any wait
-      inside the float64 `eigh`s.
+    eigh_ms (ms): the device seconds attributed to the
+      `diffsound.lobpcg.eigh` spans (the kernels and copies that the
+      float64 `eigh`s launch) over `lobpcg.sweeps`.  Not the span's wall:
+      `torch.linalg.eigh` synchronises, so the wall holds the sweep's
+      device backlog.
     sweep_launches (launches): kernel launches inside the
       `diffsound.lobpcg.sweep` spans over `lobpcg.sweeps`.
-    refresh_active_share (%): `lobpcg.pair_sweeps_active` over
-      `lobpcg.pair_sweeps`: the share of the batch's pair-sweeps spent on
-      a pair still iterating.
     """
-    out = dict.fromkeys(("apply_roofline", "eigh_ms", "sweep_launches", "refresh_active_share"))
+    out = dict.fromkeys(("apply_roofline", "eigh_ms", "sweep_launches"))
     if not sp:
         return out
     c, s = sp["counters"], sp["spans"]
@@ -234,10 +232,9 @@ def readings(sp: dict, dims: dict) -> dict:
         out["apply_roofline"] = 100.0 * bound / dev
     sweeps = c.get("lobpcg.sweeps", 0)
     if sweeps:
-        if "diffsound.lobpcg.eigh" in s:
-            out["eigh_ms"] = 1e3 * s["diffsound.lobpcg.eigh"]["wall_s"] / sweeps
+        eigh = s.get("diffsound.lobpcg.eigh", {}).get("device_s", 0.0)
+        if eigh > 0:
+            out["eigh_ms"] = 1e3 * eigh / sweeps
         if "diffsound.lobpcg.sweep" in s:
             out["sweep_launches"] = s["diffsound.lobpcg.sweep"]["launches_in"] / sweeps
-        out["refresh_active_share"] = 100.0 * c["lobpcg.pair_sweeps_active"] / \
-            c["lobpcg.pair_sweeps"]
     return out

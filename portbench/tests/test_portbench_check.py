@@ -10,16 +10,17 @@ from conftest import tiny_spec
 
 
 def judged(fault, seed=2**31 + 11):
-    from harness import check, faults, main
+    from harness import check, main
 
     spec = tiny_spec()
+    drv = main.driver(spec["cfg"])
     torch.set_num_threads(2)
     try:
         m = main.measure(spec, seed, 0.0, False, "cpu", time.perf_counter(), fault)
     finally:
-        faults.heal()
-    values = check.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device("cpu"))
-    return check.judge(values, spec["limits"])
+        drv.heal()
+    values = drv.numbers(m["rec"], m["inputs"], spec["cfg"], torch.device("cpu"))
+    return check.judge(values, spec["limits"], drv.NAMES)
 
 
 def test_sound_run_is_correct(in_tmp_cwd):
@@ -41,17 +42,17 @@ def test_limits_must_name_every_number():
     values = dict.fromkeys(check.NAMES, 0.0)
     limits = dict.fromkeys(check.NAMES[1:], 1.0)
     with pytest.raises(KeyError):
-        check.judge(values, limits)
+        check.judge(values, limits, check.NAMES)
 
 
 def test_run_reports_correct_false_under_a_fault(in_tmp_cwd):
-    from harness import faults, main
+    from harness import main
 
     spec = tiny_spec()
     try:
         out = main.run(spec, 5, 0.0, True, "cpu", time.perf_counter(), "half_batch")
     finally:
-        faults.heal()
+        main.driver(spec["cfg"]).heal()
     assert out["correct"] is False
     assert list(out)[-1] == "checks"
     assert out["checks"]["loss"]["value"] > out["checks"]["loss"]["limit"]

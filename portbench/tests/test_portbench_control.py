@@ -24,6 +24,7 @@ def test_tf32_control_fails_the_check(cuda_device, in_tmp_cwd, tf32):
         m = main.measure(spec, 2**31 + 3, 0.0, False, cuda_device, time.perf_counter())
     finally:
         set_tf32(False)
-    ok, rows = check.judge(check.numbers(m["rec"], m["inputs"], spec["cfg"], cuda_device),
-                           spec["limits"])
+    drv = main.driver(spec["cfg"])
+    ok, rows = check.judge(drv.numbers(m["rec"], m["inputs"], spec["cfg"], cuda_device),
+                           spec["limits"], drv.NAMES)
     assert ok is not tf32, rows

@@ -1,6 +1,7 @@
 """Reading the program's own spans (`harness/spans.py`): device time and
 launches put down to the innermost `diffsound.*` span by correlation id,
-across threads; self time; idle gaps by span; the four refresh readings.
+across threads; self time; idle gaps by span; the three span readings of
+the refresh.
 Events are made by hand, with and without their kind, and one cycle of a
 CPU-sized program is traced."""
 
@@ -108,15 +109,15 @@ def test_readings():
          "lobpcg.pair_sweeps_active": 12}
     sp = _sp(c, {"diffsound.fem.k_apply": {"device_s": 4e-3},
                  "diffsound.fem.m_apply": {"device_s": 1e-3},
-                 "diffsound.lobpcg.eigh": {"wall_s": 6e-3, "calls": 4},
+                 "diffsound.lobpcg.eigh": {"wall_s": 60e-3, "device_s": 6e-3, "calls": 4},
                  "diffsound.lobpcg.sweep": {"launches_in": 1500, "launches": 30}})
     bound = 3 * peaks.bound_s(*element_apply.count(13182, 10, 700, 19683)) + \
         2 * peaks.bound_s(*element_apply.mass_count(13182, 10, 352, 19683))
     r = spans.readings(sp, dims)
     assert r["apply_roofline"] == pytest.approx(100 * bound / 5e-3)
-    assert r["eigh_ms"] == pytest.approx(2.0)
+    assert r["eigh_ms"] == pytest.approx(2.0)  # device time, not the wall
     assert r["sweep_launches"] == pytest.approx(500.0)
-    assert r["refresh_active_share"] == pytest.approx(25.0)
+    assert set(r) == {"apply_roofline", "eigh_ms", "sweep_launches"}
 
 
 @pytest.mark.parametrize("sp", [None, {}, {"spans": {}, "counters": {}}])
@@ -124,30 +125,45 @@ def test_readings_of_a_cycle_without_the_program_spans_are_none(sp):
     assert set(spans.readings(sp, {}).values()) == {None}
 
 
+def test_read_takes_the_program_prefix():
+    evs = [Ev("portbench.cycle", 0, 100), Ev("toy.step", 10, 50),
+           Ev("cudaLaunchKernel", 20, 5, kind="cuda_runtime", corr=3),
+           Ev("k", 30, 10, kind="kernel", corr=3)]
+    r = spans.read(evs, {}, prefix="toy.")
+    assert r["span_device"] == [["toy.step", pytest.approx(10e-9)]]
+    assert r["attributed_share"] == pytest.approx(100.0)
+    assert spans.read(evs, {})["span_device"] == []
+
+
 def test_a_program_without_tracing_gives_none(monkeypatch):
+    from harness import main
+
     monkeypatch.setitem(sys.modules, "diffsound_torch.utils.profiler",
                         types.ModuleType("diffsound_torch.utils.profiler"))
-    assert spans.program_cycle(object()) is None
+    assert main.driver({}).program_tracing() is None
+    assert spans.program_cycle(object(), None) is None
 
 
 def test_program_cycle_on_the_cpu(in_tmp_cwd):
     import torch
 
-    from harness import inputs, program
     from harness import main as harness
 
     spec = tiny_spec(cells=3, pairs=4)
+    drv = harness.driver(spec["cfg"])
     dev = torch.device("cpu")
-    inp = inputs.make(spec["cfg"], spec["traffic"], 2**31 + 12345, dev)
-    prog = program.Program(spec["cfg"], inp, dev)
+    inp = drv.make_inputs(spec["cfg"], spec["traffic"], 2**31 + 12345, dev)
+    prog = drv.Program(spec["cfg"], inp, dev)
     prog.setup_steps()
-    sp = spans.program_cycle(prog)
+    sp = spans.program_cycle(prog, drv.program_tracing())
     its = prog.refresh_iters[-1]
     c, s = sp["counters"], sp["spans"]
     assert c["lobpcg.sweeps"] == max(its) == s["diffsound.lobpcg.sweep"]["calls"]
     assert c["lobpcg.pair_sweeps_active"] == sum(its)
+    assert c["lobpcg.pair_sweeps"] == len(its) * max(its)
     assert s["diffsound.step"]["calls"] == prog.cycle_len
     assert s["portbench.step"]["calls"] == prog.cycle_len - 1
-    r = spans.readings(sp, harness.dims(spec["cfg"], inp))
-    assert r["refresh_active_share"] == pytest.approx(100 * sum(its) / (len(its) * max(its)))
-    assert r["eigh_ms"] > 0 and r["apply_roofline"] is None  # no device time on the CPU
+    assert s["diffsound.lobpcg.eigh"]["calls"] >= max(its)
+    r = spans.readings(sp, drv.dims(spec["cfg"], inp))
+    # no device time on the CPU, so neither device reading
+    assert r["eigh_ms"] is None and r["apply_roofline"] is None

@@ -8,10 +8,11 @@ benchmark's spans alone, as a `--trace 1` run profiles its cycle, and one
 with the program's `tracing()` open, read by `harness/spans.py`.
 Standard error takes each cycle's per-span table and the cost of a span
 site with tracing closed; the last line of standard output is one JSON
-object: each program-traced cycle's four refresh readings, `span_device`,
-`idle_spans` and the share of device time attributed to a `diffsound.*`
-span, and for every cycle the mean `portbench.step` wall and the wall a
-LOBPCG sweep, the cost of tracing when on.
+object: each program-traced cycle's three span readings of the refresh
+and its `refresh_active_share`, `span_device`, `idle_spans` and the share
+of device time attributed to a `diffsound.*` span, and for every cycle
+the mean `portbench.step` wall and the wall a LOBPCG sweep, the cost of
+tracing when on.
 """
 
 import argparse
@@ -72,7 +73,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from harness import inputs, program, spans
+    from harness import spans
     from harness import main as harness
 
     if not torch.cuda.is_available():
@@ -80,19 +81,21 @@ def main(argv=None) -> int:
         return 2
     torch.set_num_threads(4)
     spec = harness.cell_spec(root, args.workload)
+    drv = harness.driver(spec["cfg"])
     dev = torch.device("cuda")
-    inp = inputs.make(spec["cfg"], spec["traffic"], args.seed, dev)
-    prog = program.Program(spec["cfg"], inp, dev)
+    inp = drv.make_inputs(spec["cfg"], spec["traffic"], args.seed, dev)
+    prog = drv.Program(spec["cfg"], inp, dev)
     prog.setup_steps()
-    program.sync(dev)
+    harness.sync(dev)
     harness.log(f"set-up {time.perf_counter() - t_start:.3f} s")
-    dims = harness.dims(spec["cfg"], inp)
+    dims = drv.dims(spec["cfg"], inp)
+    hooks = drv.program_tracing()
 
     cycles = []
     for r in range(args.rounds):
         for traced in (False, True):
-            sp = spans.program_cycle(prog) if traced else spans.read(
-                *spans.profile_cycle(prog, False))
+            sp = spans.program_cycle(prog, hooks) if traced else spans.read(
+                *spans.profile_cycle(prog))
             sweeps = max(prog.refresh_iters[-1])
             s = sp["spans"]
             row = {"program_spans": traced, "sweeps": sweeps,
@@ -100,7 +103,9 @@ def main(argv=None) -> int:
                    "sweep_ms": 1e3 * s["portbench.refresh"]["wall_s"] / sweeps,
                    "window_s": sp["window_s"], "device_s": sp["device_s"]}
             if traced:
+                its = prog.refresh_iters[-1]
                 row.update(spans.readings(sp, dims), attributed_share=sp["attributed_share"],
+                           refresh_active_share=100.0 * sum(its) / (len(its) * sweeps),
                            span_device=sp["span_device"], idle_spans=sp["idle_spans"],
                            counters=sp["counters"])
             harness.log(f"round {r}, program spans {traced}: {json.dumps(row)}\n{table(sp)}")
